@@ -1,0 +1,222 @@
+"""BERT encoder stack in PyTorch (post-LN), inference path.
+
+The counterpart of medvill_tpu/models/bert.py.  Module and parameter names
+follow the reference's torch layout (``attention.self.query``,
+``attention.output.LayerNorm``, ``intermediate.dense``, ``output.dense``,
+...), so a reference ``state_dict`` loads without a remap.
+
+Numerics follow the JAX package: parameters are f32, matmuls run in
+``config.compute_dtype`` (operands cast, as flax ``Dense(dtype=...)`` does),
+LayerNorm statistics and softmax are f32, GELU is the exact erf form in the
+compute dtype.  ``prepare_for_compute`` (models/seq2seq.py) may store the
+matmul weights in the compute dtype once, which makes the casts here no-ops.
+
+Dropout is absent: this is the decode path, which the JAX package runs with
+``deterministic=True``; training (and ``remat``, which only matters there)
+is a later slice.  ``fused_qkv`` changes only the JAX parameter tree, not the
+math, so it has no counterpart here.
+
+The encoder takes an optional per-layer K/V cache that is written in place
+at ``cache_index`` (JAX writes a new array with ``dynamic_update_slice``);
+the updated caches are returned as well, so callers read like the JAX code.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from medvill_torch.config import BertConfig
+from medvill_torch.ops.attention import mha_reference
+from medvill_torch.ops.fused_ln import fused_dropout_add_ln
+
+KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+def compute_dtype(cfg: BertConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias in ``dtype``."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=dtype)``: f32 statistics and affine, output
+    cast to ``dtype``."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(dtype)
+
+
+class BertEmbeddings(nn.Module):
+    """word + position + token-type embeddings (f32) -> LayerNorm.  Without
+    ``position_ids`` positions are ``arange(L)``; without ``token_type_ids``
+    types are 0."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dtype = compute_dtype(cfg)
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                cfg.hidden_size)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size,
+                                                  cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, input_ids: torch.Tensor,
+                token_type_ids: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        B, L = input_ids.shape
+        if position_ids is None:
+            position_ids = torch.arange(
+                L, device=input_ids.device).expand(B, L)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(position_ids)
+             + self.token_type_embeddings(token_type_ids))
+        return layer_norm(self.LayerNorm, x, self.dtype)
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        self.query = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.key = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.value = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
+                attention_fn=None, kv_cache: Optional[KVCache] = None,
+                cache_index: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        """Returns (context [B, L, hidden], the updated cache or None).
+        With a cache, the new K/V are written at [cache_index, +L) and
+        attention runs over the whole cache (the bias masks what is not
+        written yet)."""
+        cfg = self.cfg
+        B, L, _ = hidden.shape
+        shape = (B, L, cfg.num_attention_heads, cfg.head_dim)
+        q = dense(self.query, hidden, self.dtype).view(shape)
+        k = dense(self.key, hidden, self.dtype).view(shape)
+        v = dense(self.value, hidden, self.dtype).view(shape)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            ck[:, cache_index:cache_index + L] = k
+            cv[:, cache_index:cache_index + L] = v
+            k, v = ck, cv
+        fn = mha_reference if attention_fn is None else attention_fn
+        ctx = fn(q, k, v, bias)
+        return ctx.reshape(B, L, cfg.hidden_size), kv_cache
+
+
+class FusedDropAddLN(nn.LayerNorm):
+    """(dropout + residual-add + LayerNorm) as one kernel
+    (ops/fused_ln.py), selected by ``BertConfig.fused_ln``.  A LayerNorm by
+    parameters, so checkpoints are the same with and without it."""
+
+    def __init__(self, cfg: BertConfig, width: int):
+        super().__init__(width, eps=cfg.layer_norm_eps)
+        self.dtype = compute_dtype(cfg)
+
+    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+        # inference: dropout rate 0, so the seed is unused
+        y = fused_dropout_add_ln(x, res, self.weight, self.bias, rate=0.0,
+                                 eps=self.eps, seed=0)
+        return y.to(self.dtype)
+
+
+class BertSelfOutput(nn.Module):
+    """dense -> (dropout) -> LayerNorm(x + residual).  Also serves as the
+    FFN's ``output`` block (the reference's BertOutput has the same
+    shape)."""
+
+    def __init__(self, cfg: BertConfig, in_features: int):
+        super().__init__()
+        self.dtype = compute_dtype(cfg)
+        self.dense = nn.Linear(in_features, cfg.hidden_size)
+        self.LayerNorm = (FusedDropAddLN(cfg, cfg.hidden_size) if cfg.fused_ln
+                          else nn.LayerNorm(cfg.hidden_size,
+                                            eps=cfg.layer_norm_eps))
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        x = dense(self.dense, x, self.dtype)
+        if isinstance(self.LayerNorm, FusedDropAddLN):
+            return self.LayerNorm(x, residual)
+        return layer_norm(self.LayerNorm, x + residual, self.dtype)
+
+
+class BertAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.self = BertSelfAttention(cfg)
+        self.output = BertSelfOutput(cfg, cfg.hidden_size)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dtype = compute_dtype(cfg)
+        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # exact erf-GELU in the compute dtype (medvill_tpu bert.py:273)
+        return F.gelu(dense(self.dense, x, self.dtype))
+
+
+class BertLayer(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.attention = BertAttention(cfg)
+        self.intermediate = BertIntermediate(cfg)
+        self.output = BertSelfOutput(cfg, cfg.intermediate_size)
+
+    def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
+                attention_fn=None, kv_cache: Optional[KVCache] = None,
+                cache_index: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+        ctx, new_cache = self.attention.self(
+            hidden, bias, attention_fn=attention_fn, kv_cache=kv_cache,
+            cache_index=cache_index)
+        attn_out = self.attention.output(ctx, hidden)
+        out = self.output(self.intermediate(attn_out), attn_out)
+        return out, new_cache
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayer(cfg)
+                                   for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
+                attention_fn=None,
+                kv_caches: Optional[List[KVCache]] = None,
+                cache_index: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
+        new_caches = [] if kv_caches is not None else None
+        for i, layer in enumerate(self.layer):
+            cache = kv_caches[i] if kv_caches is not None else None
+            hidden, new_cache = layer(hidden, bias, attention_fn=attention_fn,
+                                      kv_cache=cache, cache_index=cache_index)
+            if new_caches is not None:
+                new_caches.append(new_cache)
+        return hidden, new_caches
+
+
+class BertPooler(nn.Module):
+    """dense + tanh over position 0."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dtype = compute_dtype(cfg)
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        x = dense(self.dense, hidden[:, 0], self.dtype)
+        return torch.tanh(x.float()).to(self.dtype)

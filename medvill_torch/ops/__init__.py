@@ -1,0 +1,1 @@
+"""Attention and the hand-written kernels with their plain versions."""
