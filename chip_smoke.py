@@ -26,12 +26,48 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    decode window, fused LN on (the kernel) vs off (plain LayerNorm) on the
    card, and the card against the CPU: logits max abs err <= 1e-3.
 
+5. kernel-attn: the attention kernels K1 (forward) and K2 (backward)
+   against their plain versions at the pretrain shape (B = 36, L = 436,
+   12 x 64; each of the five pretrain mask variants) and at a finetune shape
+   (B = 4, L = 512, img_block 258; the three seq2seq modes), f32 and bf16,
+   dropout 0 and 0.1.  Tolerances: f32 o 1e-5, lse 1e-4, dq/dk/dv 1e-4
+   (summation order); bf16 one ulp of the largest value (2^-7 * max).  The
+   rate-0.1 keep mask read back from K1 (q = k = 0, V one-hot over a window
+   of 64 keys) equals the plain mask bit for bit.  Times at the pretrain
+   shape, bf16, BAR, dropout 0.1: device times from CUDA graphs for kernel,
+   plain version and F.scaled_dot_product_attention with the same -10000
+   bias at rate 0 as the library yardstick (autograd through it for K2, the
+   backward captured on its forward's stream), and eager per-call times.
+6. kernel-ln-bwd: the fused-LN backward K4 against its plain version and
+   against autograd through the plain forward, and K3 with dropout 0.1,
+   at the training shape R = 36 * 436 = 15696, H = 768, f32 and bf16,
+   rate 0 and 0.1; device times from CUDA graphs beside the bound and the
+   library's (autograd through F.layer_norm(x + res) for K4,
+   F.layer_norm(x + res) for K3), and eager per-call times.
+7. train: python -m medvill_torch.cli.pretrain_main's entry point at the
+   full configuration (BERT-base, ResNet-50 at 512 px, 180 random-pixel
+   embeds, seq_len 253 so L = 436, BAR, batch 36, accumulation 4, AdamW lr
+   1e-5) on 288 synthetic records (8 micro-steps = 2 optimizer steps):
+   finite losses, a checkpoint written, pairs/s and peak memory, and
+   exactly 12 K1 and 12 K2 launches per micro-step.
+8. train-fused: the same trainer through medvill_torch.train.pretrain with
+   fused_ln on, 4 micro-steps on one repeated batch: the loss falls and K3
+   and K4 run exactly 24 times each per micro-step; then the steady-state
+   ms per micro-step with fused_ln on and off.
+9. train-parity: one step at full width, batch 4, f32 with TF32 off,
+   fused_ln on, dropout 0.1: the kernel path against the plain path (the
+   same model with the plain versions swapped in) from the same seeds: loss
+   within 1e-4 relative, every gradient within 1e-3 of its tensor's largest
+   entry (a key bias, whose exact gradient is 0, of its layer's key
+   weights' largest entry).
+
 Then the line of kernels, and last {"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
 from __future__ import annotations
 
 import base64
+import dataclasses
 import io
 import json
 import logging
@@ -47,18 +83,35 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from medvill_torch.cli import serve_main
+from medvill_torch.cli import pretrain_main, serve_main
+from medvill_torch.config import (BertConfig, ImageEncoderConfig, MaskVariant,
+                                  PretrainConfig)
 from medvill_torch.convert import load_vlp_checkpoint
+from medvill_torch.data.pretrain import BatchLoader, CXRPretrainDataset
+from medvill_torch.data.tokenization import BertTokenizer
+from medvill_torch.models import bert as bert_lib
 from medvill_torch.models import decoder
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
-from medvill_torch.ops import build, fused_ln
+from medvill_torch.ops import build
+from medvill_torch.ops import flash_attention as fa
+from medvill_torch.ops import fused_ln
+from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.train import pretrain as pretrain_lib
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
 H = 768
 BATCH, T_MAX, VIS, IMG = 8, 128, 256, 512
 N_REQUESTS = 12
 SEED = 0
+# pretraining: PretrainConfig defaults (BERT-base, 180 of 256 fibers at
+# 512 px, seq_len 253, batch 36, accumulation 4)
+PRE_B, PRE_L, PRE_IMG_BLOCK = 36, 253 + 180 + 3, 182
+HEADS, HEAD_DIM = 12, 64
+FT_B, FT_L, FT_IMG_BLOCK = 4, 512, 258   # a finetune shape (seq2seq family)
+TRAIN_RECORDS, TRAIN_IMAGES = 288, 8
+MICRO_STEPS = TRAIN_RECORDS // PRE_B
 
 
 def emit(obj) -> None:
@@ -81,17 +134,21 @@ def eager_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 100, reps: int = 5) -> float:
+def device_ms(fn, iters: int = 100, reps: int = 5,
+              stream: torch.cuda.Stream = None) -> float:
     """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
-    graph and replayed, so the host's launch cost is out of the figure."""
-    side = torch.cuda.Stream()
+    graph and replayed, so the host's launch cost is out of the figure.
+    ``fn`` may run autograd backward through a graph whose forward ran on
+    ``stream`` (backward ops run on their forward's stream): the capture
+    then happens on that stream."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -109,6 +166,41 @@ def device_ms(fn, iters: int = 100, reps: int = 5) -> float:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def bound(nbytes: float, nops: float, dtype) -> tuple:
+    """(least ms, what bounds it): bytes over HBM rate vs operations over
+    the peak rate of the dtype (bf16 tensor cores, f32 CUDA cores)."""
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor, tol: float,
+            what: str) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= tol, f"{what}: max abs err {err} > {tol}")
+    return err
+
+
+def bf16_tol(want: torch.Tensor) -> float:
+    """One bf16 ulp of the largest value: both sides compute in f32 from
+    the same inputs and round once."""
+    return 2.0 ** -7 * want.float().abs().max().item()
+
+
+def reset_counts() -> None:
+    for fn in (fa.attn_fwd, fa.attn_bwd, fused_ln.fused_ln_fwd,
+               fused_ln.fused_ln_bwd):
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {"K1": fa.attn_fwd.launches, "K2": fa.attn_bwd.launches,
+            "K3": fused_ln.fused_ln_fwd.launches,
+            "K4": fused_ln.fused_ln_bwd.launches}
 
 
 def phase_build() -> None:
@@ -206,15 +298,20 @@ def phase_kernel(device) -> dict:
     return entry
 
 
-def _write_fixture(d: str) -> list:
-    """Vocab, config.json and a random full-width checkpoint; returns the
-    serve CLI arguments."""
-    vocab = os.path.join(d, "vocab.txt")
-    with open(vocab, "w") as f:
+def write_vocab(path: str) -> None:
+    """A synthetic 30522-token wordpiece vocabulary."""
+    with open(path, "w") as f:
         for tok in ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]:
             f.write(tok + "\n")
         for i in range(30522 - 5):
             f.write(f"tok{i}\n")
+
+
+def _write_fixture(d: str) -> list:
+    """Vocab, config.json and a random full-width checkpoint; returns the
+    serve CLI arguments."""
+    vocab = os.path.join(d, "vocab.txt")
+    write_vocab(vocab)
     cfg_path = os.path.join(d, "config.json")
     with open(cfg_path, "w") as f:
         json.dump({"fused_ln": True}, f)
@@ -267,7 +364,7 @@ def phase_serve(argv: list) -> int:
         stats = server.batcher.stats
         batches0 = stats["batches_total"]
         decode_s0 = stats["decode_seconds_total"]
-        fused_ln.fused_dropout_add_ln.launches = 0
+        fused_ln.fused_ln_fwd.launches = 0
         t0 = time.perf_counter()
         threads = [threading.Thread(target=call, args=(i,))
                    for i in range(N_REQUESTS)]
@@ -276,7 +373,7 @@ def phase_serve(argv: list) -> int:
         for t in threads:
             t.join(timeout=900)
         wall = time.perf_counter() - t0
-        launches = fused_ln.fused_dropout_add_ln.launches
+        launches = fused_ln.fused_ln_fwd.launches
         check(not any(t.is_alive() for t in threads), "a request hung")
         for i, r in enumerate(results):
             check(r is not None and r[0] == 200
@@ -326,8 +423,6 @@ def _first_window_logits(model, image, device) -> torch.Tensor:
 
 
 def phase_parity(argv: list, device) -> None:
-    import dataclasses
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     args = serve_main.build_parser().parse_args(argv)
@@ -361,6 +456,461 @@ def phase_parity(argv: list, device) -> None:
           "tol": 1e-3})
 
 
+def _attn_inputs(device, gen, B, L, img_block, family, variant, dtype):
+    q, k, v, do = (torch.randn(B, L, HEADS, HEAD_DIM, device=device,
+                               generator=gen).to(dtype) for _ in range(4))
+    if family == fa.FAMILY_PRETRAIN:
+        txt = torch.randint(1, L - img_block + 1, (B,), device=device,
+                            generator=gen)
+    else:  # n_tokens: CLS + image + SEP + at least one token
+        txt = torch.randint(img_block + 1, L + 1, (B,), device=device,
+                            generator=gen)
+    spec = torch.stack([torch.full_like(txt, variant), txt], 1)
+    return q, k, v, do, spec.to(torch.int32).contiguous()
+
+
+def phase_kernel_attn(device) -> dict:
+    """K1/K2 against their plain versions; returns the kernels-line entries
+    (pretrain shape, bf16, BAR, dropout 0.1: the training path's call)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = ([("pretrain", PRE_B, PRE_L, PRE_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+               int(v)) for v in MaskVariant]
+             + [("seq2seq", FT_B, FT_L, FT_IMG_BLOCK, fa.FAMILY_SEQ2SEQ, m)
+                for m in range(3)])
+    worst: dict = {}
+    main_errs = None
+    for shape, B, L, ib, family, variant in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            for rate in (0.0, 0.1):
+                q, k, v, do, spec = _attn_inputs(device, gen, B, L, ib,
+                                                 family, variant, dtype)
+                kw = dict(img_block=ib, l_real=L, family=family, rate=rate,
+                          seed=17 + variant)
+                o, lse = fa.attn_fwd(q, k, v, spec, **kw)
+                grads = fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+                torch.cuda.synchronize()
+                want_o, want_lse = fa.attn_fwd_plain(q, k, v, spec, **kw)
+                want_g = fa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
+                what = f"{shape} variant {variant} {dtype} rate {rate}"
+                errs = {"o": max_err(o, want_o, 1e-5 if f32 else
+                                     bf16_tol(want_o), f"K1 o {what}"),
+                        "lse": max_err(lse, want_lse, 1e-4, f"K1 lse {what}")}
+                for name, g, w in zip(("dq", "dk", "dv"), grads, want_g):
+                    errs[name] = max_err(g, w, 1e-4 if f32 else bf16_tol(w),
+                                         f"K2 {name} {what}")
+                key = f"{shape}/{str(dtype)[6:]}/rate{rate}"
+                acc = worst.setdefault(key, {})
+                for name, e in errs.items():
+                    acc[name] = max(acc.get(name, 0.0), e)
+                if (shape, variant, dtype, rate) == (
+                        "pretrain", int(MaskVariant.BAR), torch.bfloat16, 0.1):
+                    main_errs = errs
+                del q, k, v, do, o, lse, grads, want_o, want_lse, want_g
+    # the rate-0.1 keep mask read back from K1: with q = k = 0 every cell of
+    # a FULL row with all text valid has p = 1/L, and V one-hot over a
+    # window of 64 keys makes O[r, d] > 0 iff key c0 + d was kept
+    B, L, rate, seed = PRE_B, PRE_L, 0.1, 1234
+    z = torch.zeros(B, L, HEADS, HEAD_DIM, device=device)
+    spec = torch.tensor([[int(MaskVariant.FULL), L - PRE_IMG_BLOCK]] * B,
+                        dtype=torch.int32, device=device)
+    mask = fa.keep_mask(seed, B, HEADS, L, rate, device)
+    for c0 in range(0, L, HEAD_DIM):
+        w = min(HEAD_DIM, L - c0)
+        v = torch.zeros_like(z)
+        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=device)[:, None]
+        o, _ = fa.attn_fwd(z, z, v, spec, img_block=PRE_IMG_BLOCK, l_real=L,
+                           family=fa.FAMILY_PRETRAIN, rate=rate, seed=seed)
+        check(torch.equal((o[..., :w] > 0).permute(0, 2, 1, 3),
+                          mask[..., c0:c0 + w]),
+              f"K1 keep mask differs from the plain one at keys {c0}+")
+    keep_fraction = mask.float().mean().item()
+    check(abs(keep_fraction - (1 - rate)) <= 0.005,
+          f"keep fraction {keep_fraction}")
+    del z, v, o, mask
+
+    # times: the training call (bf16, BAR, dropout 0.1)
+    dtype = torch.bfloat16
+    q, k, v, do, spec = _attn_inputs(device, gen, PRE_B, PRE_L, PRE_IMG_BLOCK,
+                                     fa.FAMILY_PRETRAIN, int(MaskVariant.BAR),
+                                     dtype)
+    kw = dict(img_block=PRE_IMG_BLOCK, l_real=PRE_L,
+              family=fa.FAMILY_PRETRAIN, rate=0.1, seed=5)
+    o, lse = fa.attn_fwd(q, k, v, spec, **kw)
+
+    def k1():
+        fa.attn_fwd(q, k, v, spec, **kw)
+
+    def k2():
+        fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+
+    def k1_plain():
+        fa.attn_fwd_plain(q, k, v, spec, **kw)
+
+    def k2_plain():
+        fa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
+
+    bias = fa.score_bias(spec, PRE_L, PRE_IMG_BLOCK, PRE_L,
+                         fa.FAMILY_PRETRAIN).to(dtype)
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    do_l = do.transpose(1, 2).contiguous()
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
+
+    def k1_library():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
+
+    def k2_library():
+        torch.autograd.grad(out, (ql, kl, vl), do_l, retain_graph=True)
+
+    t = {"k1_ms": device_ms(k1, iters=20, reps=3),
+         "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
+         "k1_library_ms": device_ms(k1_library, iters=20, reps=3),
+         "k2_ms": device_ms(k2, iters=10, reps=3),
+         "k2_plain_ms": device_ms(k2_plain, iters=3, reps=2),
+         "k2_library_ms": device_ms(k2_library, iters=10, reps=3,
+                                    stream=lib_stream),
+         "k2_library_eager_ms": eager_ms(k2_library, iters=10, warmup=2),
+         "k1_eager_ms": eager_ms(k1, iters=20, warmup=3),
+         "k2_eager_ms": eager_ms(k2, iters=10, warmup=2)}
+    elems = PRE_B * PRE_L * HEADS * HEAD_DIM
+    pairs = PRE_B * HEADS * PRE_L * PRE_L * HEAD_DIM
+    k1_bound, k1_by = bound(4 * elems * 2, 4 * pairs, dtype)
+    # K2 reads q, k, v, o, dO and writes dq, dk, dv
+    k2_bound, k2_by = bound(8 * elems * 2, 10 * pairs, dtype)
+    emit({"phase": "kernel-attn", "cases": len(cases) * 4,
+          "max_abs_err": worst, "tol": {"f32": {"o": 1e-5, "lse": 1e-4,
+                                                "grads": 1e-4},
+                                        "bf16": "2^-7 * max|plain|"},
+          "keep_mask_equal": True, "keep_fraction": keep_fraction,
+          "timed": "pretrain B=36 L=436 12x64 bf16 BAR rate 0.1", **t,
+          "k1_bound_ms": k1_bound, "k1_bound_by": k1_by,
+          "k2_bound_ms": k2_bound, "k2_bound_by": k2_by})
+    k2_err = max(main_errs[n] for n in ("dq", "dk", "dv"))
+    return {"K1": {"max_abs_err": main_errs["o"], "ms": t["k1_ms"],
+                   "plain_ms": t["k1_plain_ms"], "bound_ms": k1_bound,
+                   "bound_by": k1_by, "library_ms": t["k1_library_ms"]},
+            "K2": {"max_abs_err": k2_err, "ms": t["k2_ms"],
+                   "plain_ms": t["k2_plain_ms"], "bound_ms": k2_bound,
+                   "bound_by": k2_by, "library_ms": t["k2_library_ms"],
+                   "library_eager_ms": t["k2_library_eager_ms"]}}
+
+
+def phase_kernel_ln_bwd(device) -> dict:
+    """K4 (and K3 at dropout 0.1) at the training shape; returns the
+    kernels-line entries (bf16, dropout 0.1)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    rows = PRE_B * PRE_L
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        for rate in (0.0, 0.1):
+            x, res, dy = (torch.randn(rows, H, device=device,
+                                      generator=gen).to(dtype)
+                          for _ in range(3))
+            gamma, beta = (torch.randn(H, device=device, generator=gen)
+                           for _ in range(2))
+            kw = dict(rate=rate, eps=1e-12, seed=77)
+            got = fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
+            y = fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw)
+            torch.cuda.synchronize()
+            want = fused_ln.fused_dropout_add_ln_bwd_plain(x, res, gamma, dy,
+                                                           **kw)
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, res, gamma, beta)]
+            auto = torch.autograd.grad(
+                fused_ln.fused_dropout_add_ln_plain(*leaves, **kw), leaves,
+                dy)
+            what = f"{dtype} rate {rate}"
+            errs = {}
+            for i, name in enumerate(("dx", "dres", "dgamma", "dbeta")):
+                # dgamma/dbeta sum over the rows in another order
+                tol = (1e-6 * rows if i >= 2 else
+                       1e-5 if f32 else bf16_tol(want[i]))
+                errs[name] = max_err(got[i], want[i], tol, f"K4 {name} {what}")
+                errs[name + "_vs_autograd"] = max_err(
+                    got[i], auto[i], tol if i >= 2 or not f32 else 1e-4,
+                    f"K4 {name} vs autograd {what}")
+            y_want = fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta,
+                                                         **kw)
+            errs["k3_y"] = max_err(y, y_want, 1e-5 if f32 else
+                                   bf16_tol(y_want), f"K3 {what}")
+            if rate > 0:  # dx is zero where the forward dropped x
+                keep = fused_ln.keep_mask(77, rows, H, rate, device)
+                check(bool((got[0][~keep] == 0).all()),
+                      f"K4 dx is not zero where x was dropped ({what})")
+            rec = {"phase": "kernel-ln-bwd", "rows": rows, "h": H,
+                   "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs}
+            if dtype == torch.bfloat16 and rate > 0:
+                def k4():
+                    fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
+
+                def k4_plain():
+                    fused_ln.fused_dropout_add_ln_bwd_plain(x, res, gamma,
+                                                            dy, **kw)
+
+                def k3():
+                    fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw)
+
+                def k3_plain():
+                    fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta,
+                                                        **kw)
+
+                lx, lr_, lg, lb = (t.detach().clone().requires_grad_()
+                                   for t in (x, res, gamma.to(dtype),
+                                             beta.to(dtype)))
+                lib_stream = torch.cuda.Stream()
+                lib_stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(lib_stream):
+                    ly = F.layer_norm(lx + lr_, (H,), lg, lb, 1e-12)
+
+                def k4_library():
+                    torch.autograd.grad(ly, (lx, lr_, lg, lb), dy,
+                                        retain_graph=True)
+
+                def k3_library():
+                    F.layer_norm(x + res, (H,), lg.detach(), lb.detach(),
+                                 1e-12)
+
+                t = {"k4_ms": device_ms(k4, iters=50, reps=3),
+                     "k4_plain_ms": device_ms(k4_plain, iters=10, reps=2),
+                     "k4_library_ms": device_ms(k4_library, iters=50, reps=3,
+                                                stream=lib_stream),
+                     "k4_library_eager_ms": eager_ms(k4_library, iters=50,
+                                                     warmup=5),
+                     "k4_eager_ms": eager_ms(k4, iters=50, warmup=5),
+                     "k3_ms": device_ms(k3, iters=50, reps=3),
+                     "k3_plain_ms": device_ms(k3_plain, iters=10, reps=2),
+                     "k3_library_ms": device_ms(k3_library, iters=50,
+                                                reps=3)}
+                k4_bound, k4_by = bound(5 * rows * H * 2 + 3 * H * 4,
+                                        20 * rows * H, dtype)
+                k3_bound, k3_by = bound(3 * rows * H * 2 + 2 * H * 4,
+                                        10 * rows * H, dtype)
+                rec.update(t, k4_bound_ms=k4_bound, k4_bound_by=k4_by,
+                           k3_bound_ms=k3_bound, k3_bound_by=k3_by)
+                out = {"K3": {"max_abs_err": errs["k3_y"], "ms": t["k3_ms"],
+                              "plain_ms": t["k3_plain_ms"],
+                              "bound_ms": k3_bound, "bound_by": k3_by,
+                              "library_ms": t["k3_library_ms"]},
+                       "K4": {"max_abs_err": max(errs["dx"], errs["dres"]),
+                              "ms": t["k4_ms"], "plain_ms": t["k4_plain_ms"],
+                              "bound_ms": k4_bound, "bound_by": k4_by,
+                              "library_ms": t["k4_library_ms"],
+                              "library_eager_ms": t["k4_library_eager_ms"]}}
+            emit(rec)
+    return out
+
+
+def write_train_data(d: str, vocab: str) -> str:
+    """TRAIN_RECORDS JSONL records over TRAIN_IMAGES shared 512-px PNGs,
+    each report 240 words of the synthetic vocabulary (240 of the 253 text
+    positions after tokenization)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 2)
+    for j in range(TRAIN_IMAGES):
+        Image.fromarray(rng.integers(0, 255, (IMG, IMG), np.uint8),
+                        "L").save(os.path.join(d, f"img{j}.png"),
+                                  format="PNG")
+    with open(vocab) as f:
+        words = [w.strip() for w in f][5:]
+    path = os.path.join(d, "train.jsonl")
+    with open(path, "w") as f:
+        for i in range(TRAIN_RECORDS):
+            text = " ".join(words[j] for j in rng.integers(0, len(words), 240))
+            f.write(json.dumps({"id": str(i), "split": "train",
+                                "label": f"label{i % 5}", "text": text,
+                                "img": f"img{i % TRAIN_IMAGES}.png"}) + "\n")
+    return path
+
+
+def phase_train(d: str, vocab: str) -> tuple:
+    """The pretrain CLI's entry point at the full configuration; returns
+    (launch counts, the training data path)."""
+    data = write_train_data(d, vocab)
+    out = os.path.join(d, "pretrain_run")
+    argv = ["--train_dataset", data, "--vocab_file", vocab,
+            "--output_path", out, "--epochs", "1", "--device", "cuda",
+            "--log_freq", "4", "--num_workers", "4"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = pretrain_main.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    row = rows[0]
+    check(row["micro_steps"] == MICRO_STEPS, f"micro steps {row}")
+    check(all(np.isfinite(row[k]) for k in ("avg_loss", "avg_mlm_loss",
+                                             "avg_itm_loss")),
+          f"non-finite losses {row}")
+    check(os.path.getsize(os.path.join(out, "model.0.bin")) > 1e8,
+          "no checkpoint written")
+    want = {"K1": 12 * MICRO_STEPS, "K2": 12 * MICRO_STEPS, "K3": 0, "K4": 0}
+    check(counts == want, f"train launches {counts} != {want}")
+    emit({"phase": "train", "records": TRAIN_RECORDS,
+          "micro_steps": MICRO_STEPS, "batch": PRE_B, "seq": PRE_L,
+          "pairs_per_s": row["pairs_per_s"],
+          "ms_per_micro_step": row["epoch_time_s"] / MICRO_STEPS * 1e3,
+          "epoch_s": row["epoch_time_s"], "wall_s": wall,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "avg_loss": row["avg_loss"], "avg_mlm_loss": row["avg_mlm_loss"],
+          "avg_itm_loss": row["avg_itm_loss"], "launches": counts,
+          "launches_per_micro_step": {k: v / MICRO_STEPS
+                                      for k, v in counts.items()}})
+    return counts, data
+
+
+def _train_batch(data: str, vocab: str, cfg, device, batch_size: int):
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    loader = BatchLoader(CXRPretrainDataset(data, tok, cfg, seed=SEED),
+                         batch_size, shuffle=False)
+    return pretrain_lib.to_device(next(iter(loader)), device)
+
+
+def _steady_ms(cfg, batch, device, steps: int = 4) -> float:
+    state = pretrain_lib.init_state(cfg, seed=SEED, device=device)
+    step = pretrain_lib.make_train_step(cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def phase_train_fused(data: str, vocab: str, device) -> dict:
+    """fused_ln on through the trainer: 4 micro-steps on one repeated batch
+    (accumulation 1, so each step updates), each from a generator with the
+    same seed, so every step draws the same pixels and dropout masks and
+    the loss moves only with the parameters; returns the launch counts.
+    Then steady-state ms per micro-step, fused LN on and off, at the CLI's
+    accumulation of 4."""
+    bert = dataclasses.replace(BertConfig(), fused_ln=True)
+    cfg = PretrainConfig(bert=bert, image=ImageEncoderConfig(),
+                         batch_size=PRE_B, gradient_accumulation_steps=1)
+    batch = _train_batch(data, vocab, cfg, device, PRE_B)
+    state = pretrain_lib.init_state(cfg, seed=SEED, device=device)
+    step = pretrain_lib.make_train_step(cfg)
+    reset_counts()
+    losses = [step(state, batch, torch.Generator().manual_seed(SEED))
+              ["loss"].item() for _ in range(4)]
+    counts = read_counts()
+    del state
+    want = {"K1": 12 * 4, "K2": 12 * 4, "K3": 24 * 4, "K4": 24 * 4}
+    check(counts == want, f"train-fused launches {counts} != {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train-fused loss did not fall: {losses}")
+    timing = {}
+    for fused in (True, False):
+        c = dataclasses.replace(
+            cfg, bert=dataclasses.replace(bert, fused_ln=fused),
+            gradient_accumulation_steps=4)
+        timing["fused" if fused else "unfused"] = _steady_ms(c, batch, device)
+    emit({"phase": "train-fused", "losses": losses, "launches": counts,
+          "launches_per_micro_step": {k: v / 4 for k, v in counts.items()},
+          "steady_ms_per_micro_step": timing,
+          "steady_pairs_per_s": {k: PRE_B / v * 1e3
+                                 for k, v in timing.items()}})
+    return counts
+
+
+def phase_train_parity(data: str, vocab: str, device) -> None:
+    """One step at full width, batch 4, f32 (TF32 off), fused_ln on,
+    dropout 0.1: the kernel path (K1-K4) against the plain path, the same
+    model with the plain versions swapped in, from the same seeds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bert = dataclasses.replace(BertConfig(), compute_dtype="float32",
+                               fused_ln=True)
+    cfg = PretrainConfig(bert=bert, image=ImageEncoderConfig(),
+                         batch_size=4, gradient_accumulation_steps=1)
+    batch = _train_batch(data, vocab, cfg, device, 4)
+    model = pretrain_lib.build_model(cfg)
+    init_weights(model, SEED)
+    model.to(device)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    pix = pretrain_lib.sample_pixel_indices(
+        torch.Generator().manual_seed(SEED), cfg.image.num_fibers,
+        cfg.image.num_image_embeds).to(device)
+    spec = batch["mask_spec"]
+
+    def plain_attention(q, k, v, bias, rng=None, deterministic=True):
+        rate = 0.0 if deterministic else bert.attention_probs_dropout_prob
+        seed = rng.next_seed() if rate > 0 else 0
+        return fa.attn_fwd_plain(q, k, v, spec, img_block=PRE_IMG_BLOCK,
+                                 l_real=q.shape[1],
+                                 family=fa.FAMILY_PRETRAIN, rate=rate,
+                                 seed=seed)[0]
+
+    losses, grads = {}, {}
+    kernel_ln = bert_lib.fused_dropout_add_ln
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(buffers[k])
+        reset_counts()
+        try:
+            if path == "plain":
+                bert_lib.fused_dropout_add_ln = \
+                    fused_ln.fused_dropout_add_ln_plain
+            loss, _ = pretrain_lib.pretrain_loss_and_metrics(
+                model, batch, DropoutRNG(SEED + 3, device), pix, cfg,
+                train=True,
+                attention_fn=plain_attention if path == "plain" else None)
+            loss.backward()
+        finally:
+            bert_lib.fused_dropout_add_ln = kernel_ln
+        counts = read_counts()
+        check((counts == {"K1": 12, "K2": 12, "K3": 24, "K4": 24})
+              if path == "kernel" else not any(counts.values()),
+              f"{path} path launches {counts}")
+        losses[path] = loss.item()
+        grads[path] = {n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None}
+    rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    check(np.isfinite(losses["kernel"]) and rel <= 1e-4,
+          f"train-parity loss {losses} (relative {rel})")
+    check(grads["kernel"].keys() == grads["plain"].keys(),
+          "gradient sets differ")
+    # a tensor's scale is its largest entry; a key bias's exact gradient is
+    # 0 (softmax ignores a shift shared by a row), so both paths give
+    # rounding noise there, and its scale is the largest entry of its
+    # layer's key-weight gradient
+    top = {n: w.abs().max().item() for n, w in grads["plain"].items()}
+    worst_name, worst = "", 0.0
+    key_bias = {"max_abs_err": 0.0, "plain_max": 0.0, "kernel_max": 0.0}
+    for name, want in grads["plain"].items():
+        err = (grads["kernel"][name] - want).abs().max().item()
+        scale = top[name]
+        if name.endswith("attention.self.key.bias"):
+            scale = top[name[:-len("bias")] + "weight"]
+            key_bias["max_abs_err"] = max(key_bias["max_abs_err"], err)
+            key_bias["plain_max"] = max(key_bias["plain_max"], top[name])
+            key_bias["kernel_max"] = max(
+                key_bias["kernel_max"],
+                grads["kernel"][name].abs().max().item())
+        if err / scale > worst:
+            worst_name, worst = name, err / scale
+    check(worst <= 1e-3, f"train-parity gradient {worst_name}: {worst} of "
+                         f"its scale > 1e-3")
+    emit({"phase": "train-parity", "dtype": "float32", "tf32": False,
+          "batch": 4, "dropout": 0.1, "fused_ln": True, "losses": losses,
+          "loss_rel_err": rel, "grads": len(grads["plain"]),
+          "worst_grad_rel_err": worst, "worst_grad": worst_name,
+          "key_bias": key_bias,
+          "tol": {"loss_rel": 1e-4, "grad_rel_to_max": 1e-3}})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -376,18 +926,41 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0)})
     phase_build()
     entry = phase_kernel(device)
+    entries = phase_kernel_attn(device)
+    entries.update(phase_kernel_ln_bwd(device))
     with tempfile.TemporaryDirectory(prefix="medvill_smoke_") as d:
         argv = _write_fixture(d)
-        launches = phase_serve(argv)
+        reset_counts()
+        serve_launches = phase_serve(argv)
         phase_parity(argv, device)
-    emit({"kernels": [{
-        "name": "fused_dropout_add_ln", "route": "cuda",
-        "source": "medvill_torch/ops/csrc/fused_ln.cu",
-        "replaces": "medvill_tpu/ops/fused_ln.py:57",
-        "launches": launches, "max_abs_err": entry["max_abs_err"],
-        "ms": entry["kernel_ms"], "plain_ms": entry["plain_ms"],
-        "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
-        "library_ms": entry["library_ms"]}]})
+        vocab = argv[argv.index("--vocab_file") + 1]
+        train_counts, data = phase_train(d, vocab)
+        fused_counts = phase_train_fused(data, vocab, device)
+        phase_train_parity(data, vocab, device)
+    paths = {"serve": {"K3": serve_launches}, "train": train_counts,
+             "train-fused": fused_counts}
+    sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
+                      "medvill_tpu/ops/flash_attention.py:95"),
+               "K2": ("flash_attention_bwd", "flash_attention.cu",
+                      "medvill_tpu/ops/flash_attention.py:136"),
+               "K3": ("fused_dropout_add_ln", "fused_ln.cu",
+                      "medvill_tpu/ops/fused_ln.py:57"),
+               "K4": ("fused_dropout_add_ln_bwd", "fused_ln.cu",
+                      "medvill_tpu/ops/fused_ln.py:72")}
+    kernels = []
+    for kid, (name, src, replaces) in sources.items():
+        by_path = {p: c[kid] for p, c in paths.items() if kid in c}
+        check(sum(by_path.values()) > 0, f"{kid} never ran on a main path")
+        kernels.append({"id": kid, "name": name, "route": "cuda",
+                        "source": f"medvill_torch/ops/csrc/{src}",
+                        "replaces": replaces,
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path, **entries[kid]})
+    kernels[2]["serve_shape"] = {
+        "max_abs_err": entry["max_abs_err"], "ms": entry["kernel_ms"],
+        "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+        "library_ms": entry["library_ms"]}
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

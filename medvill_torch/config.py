@@ -1,20 +1,45 @@
-"""Typed configuration for the serving slice: a torch-free, jax-free copy of
-the JAX package's ``BertConfig``, ``ImageEncoderConfig`` and
-``FinetuneConfig`` (medvill_tpu/core/config.py:46-212,360-418), with the
+"""Typed configuration: a torch-free, jax-free copy of the JAX package's
+``MaskVariant``, ``BertConfig``, ``ImageEncoderConfig``, ``PretrainConfig``
+and ``FinetuneConfig`` (medvill_tpu/core/config.py:16-293,360-418), with the
 same fields and defaults so a ``config.json`` or a CLI flag means the same
 thing to both packages.
 
 ``compute_dtype`` names the matmul/conv dtype; LayerNorm, BatchNorm and
-softmax statistics are always f32.  The training fields (dropout rates,
-``remat``, ``fast_dropout``, the optimiser settings of ``FinetuneConfig``)
-and ``fused_qkv`` (a JAX parameter-tree layout) have no effect on the
-port's inference path yet.
+softmax statistics are always f32.  ``remat``/``remat_mode`` (a memory
+knob), ``fused_qkv`` (a JAX parameter-tree layout) and the TPU-only
+``PretrainConfig`` fields (``mesh_shape``, ``donate_state``,
+``mlm_loss_chunk``) have no effect on the port.  ``fast_dropout`` selects
+the same Bernoulli(rate) marginal as plain dropout, so the port has one
+dropout for both.
 """
 from __future__ import annotations
 
 import dataclasses
+import enum
 import json
 from typing import Optional, Tuple
+
+
+class MaskVariant(enum.IntEnum):
+    """The five self-attention mask variants (reference: README.md:25-33,
+    data/dataset_origin.py:140-177).  Values are the wire format of the
+    per-sample ``(variant, txt_len)`` spec; see ``data/masks.py``.
+
+    - FULL: row r sees col c iff c is a valid (non-pad) position.
+    - S2S: every row sees the image block (cols < num_img+2); text rows
+      attend causally over the whole text block, padding included.
+    - BAR: S2S plus image rows see everything.
+    - NONCROSS: block-diagonal I<->I, T<->T with no padding mask.
+    - ATTN1D: the 1-D padding mask broadcast over rows, densely FULL.
+    - MIXED is not a wire value: the host resolves it per sample into FULL
+      or S2S with probabilities (bi_prob, s2s_prob).
+    """
+
+    FULL = 0
+    S2S = 1
+    BAR = 2
+    NONCROSS = 3
+    ATTN1D = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +142,9 @@ class BertConfig:
 @dataclasses.dataclass(frozen=True)
 class ImageEncoderConfig:
     """Visual encoder config (reference: models/image.py,
-    main_origin.py:133-139).  The port serves the full-fiber ResNet-50
-    encoder only; ``s2d_stem`` is a TPU layout choice with the same math as
-    the plain 7x7/s2 stem the port always runs."""
+    main_origin.py:133-139).  The port runs the ResNet-50 random-pixel and
+    full-fiber encoders; ``s2d_stem`` is a TPU layout choice with the same
+    math as the plain 7x7/s2 stem the port always runs."""
 
     encoder: str = "random-pixel"
     img_size: int = 512
@@ -131,6 +156,94 @@ class ImageEncoderConfig:
     freeze_prefix_stages: bool = True
     remat_blocks: bool = False
     s2d_stem: bool = True
+
+    @property
+    def num_fibers(self) -> int:
+        """Spatial positions emitted by the CNN trunk: (img_size/32)^2."""
+        return (self.img_size // 32) ** 2
+
+    @staticmethod
+    def test_tiny() -> "ImageEncoderConfig":
+        return ImageEncoderConfig(img_size=64, num_image_embeds=3,
+                                  img_hidden_size=64)
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """Pretraining flags (reference: main_origin.py:66-152)."""
+
+    train_dataset: str = ""
+    test_dataset: Optional[str] = None
+    output_path: str = "output"
+    log_freq: int = 10
+
+    mlm_task: bool = True
+    itm_task: bool = True
+
+    # mask variant flags (--attn_1d/--BAR_attn/--Mixed/--s2s_prob/--bi_prob/
+    # --disturbing_mask; main_origin.py:90-95)
+    attn_1d: bool = False
+    bar_attn: bool = True
+    mixed: bool = False
+    s2s_prob: float = 1.0
+    bi_prob: float = 0.0
+    disturbing_mask: bool = False
+
+    epochs: int = 50
+    batch_size: int = 36
+    num_workers: int = 4
+
+    hidden_size: int = 768
+    embedding_size: int = 768
+    vocab_size: int = 30522
+    bert_model: str = "bert-base-scratch"
+    weight_load: bool = False
+    pre_trained_model_path: Optional[str] = None
+
+    img_position: bool = True
+    seq_len: int = 253
+    max_seq_len: int = 512
+
+    bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    image: ImageEncoderConfig = dataclasses.field(
+        default_factory=ImageEncoderConfig)
+
+    lr: float = 1e-5
+    gradient_accumulation_steps: int = 4
+    warmup: float = 0.1
+    seed: int = 123
+    dropout_prob: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-6
+    weight_decay: float = 0.0
+
+    mesh_shape: Tuple[int, ...] = (-1,)
+    use_flash_attention: bool = True
+    donate_state: bool = True
+    mlm_loss_chunk: int = 128
+    # gather only the labeled text positions before the vocab projection
+    # (~38 of 253 at p=0.15; 96 is +10 sigma).  0 projects every text
+    # position.
+    mlm_gather_bound: int = 96
+
+    def resolve_variant(self) -> "MaskVariant | None":
+        """Map flags to a static variant; MIXED (per-sample) returns None."""
+        if self.mixed:
+            return None
+        if self.bar_attn:
+            return MaskVariant.BAR
+        if self.disturbing_mask:
+            return MaskVariant.NONCROSS
+        if self.attn_1d:
+            return MaskVariant.ATTN1D
+        return MaskVariant.FULL
+
+    @property
+    def total_len(self) -> int:
+        """[CLS] + img(N) + [SEP] + txt(seq_len) + [SEP]
+        (reference: data/dataset_origin.py:37)."""
+        return self.seq_len + self.image.num_image_embeds + 3
 
 
 @dataclasses.dataclass(frozen=True)

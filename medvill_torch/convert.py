@@ -8,10 +8,16 @@
   ``scale`` -> ``weight``, Embed ``embedding`` -> ``weight``, Conv HWIO ->
   OIHW, BatchNorm stats -> ``running_mean``/``running_var``, the tied MLM
   decoder materialised from the word embeddings.
+- ``cxrbert_state_dict_from_flax(params, batch_stats)``: the JAX
+  package's CXRBERT pretrain tree -> the reference pretrain layout
+  (``enc.* mlm.predictions.* itm.linear.*``), a jax-free copy of
+  ``export_cxrbert_state_dict`` (core/torch_export.py:143-194).
 - ``load_vlp_checkpoint(model, path)``: a reference ``model.{N}.bin``
   (or one written by ``save_state_dict``) into a ``VLPForPreTraining``;
   ``module.``/``bert.`` prefixes are stripped as
   ``medvill_tpu.core.torch_init.init_vlp_from_torch`` does.
+- ``load_cxrbert_checkpoint(model, path)``: a pretrain checkpoint in the
+  CXRBERT layout (the pretrain CLI writes them) into a ``CXRBERT``.
 """
 from __future__ import annotations
 
@@ -124,16 +130,41 @@ def vlp_state_dict_from_flax(params: Mapping, batch_stats: Mapping
     _encoder(out, "encoder", bert["encoder"])
     _lin(out, "pooler.dense", bert["pooler"]["dense"])
     if "cls" in params:
-        head = params["cls"]
-        _lin(out, "cls.predictions.transform.dense", head["transform_dense"])
-        _ln(out, "cls.predictions.transform.LayerNorm",
-            head["transform_LayerNorm"])
-        out["cls.predictions.decoder.weight"] = _np(
-            bert["embeddings"]["word_embeddings"]["embedding"])
-        out["cls.predictions.bias"] = _np(head["decoder_bias"])
+        _mlm_head(out, "cls.predictions", params["cls"],
+                  bert["embeddings"]["word_embeddings"]["embedding"])
     if "ans_classifier" in params:
         _lin(out, "ans_classifier.0", params["ans_classifier"]["fc1"])
         _lin(out, "ans_classifier.2", params["ans_classifier"]["fc2"])
+    return out
+
+
+def _mlm_head(out: StateDict, prefix: str, head: dict,
+              word_embedding) -> None:
+    _lin(out, f"{prefix}.transform.dense", head["transform_dense"])
+    _ln(out, f"{prefix}.transform.LayerNorm", head["transform_LayerNorm"])
+    out[f"{prefix}.decoder.weight"] = _np(word_embedding)
+    out[f"{prefix}.bias"] = _np(head["decoder_bias"])
+
+
+def cxrbert_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                                 ) -> StateDict:
+    """JAX CXRBERT pretrain tree (``{"enc": ..., "mlm": ..., "itm": ...}``
+    params, ``{"enc": {"img_encoder": ...}}`` batch stats) -> the reference
+    pretrain ``state_dict`` layout, as numpy arrays."""
+    out: StateDict = {}
+    enc = params["enc"]
+    _embeddings(out, "enc.txt_embeddings", enc["embeddings"])
+    _lin(out, "enc.img_embeddings.img_embeddings", enc["img_projection"])
+    _trunk(out, "enc.img_encoder", enc["img_encoder"],
+           batch_stats["enc"]["img_encoder"])
+    _encoder(out, "enc.encoder", enc["encoder"])
+    if "pooler" in enc:  # a model built for NONCROSS only has none
+        _lin(out, "enc.pooler.dense", enc["pooler"]["dense"])
+    if "mlm" in params:
+        _mlm_head(out, "mlm.predictions", params["mlm"],
+                  enc["embeddings"]["word_embeddings"]["embedding"])
+    if "itm" in params:
+        _lin(out, "itm.linear", params["itm"]["linear"])
     return out
 
 
@@ -151,14 +182,10 @@ def _strip(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
             for k, v in sd.items()}
 
 
-def load_vlp_checkpoint(model: nn.Module, path: str) -> List[str]:
-    """Load a torch finetune checkpoint file into ``model``.
-
-    Unwraps ``{"state_dict": ...}`` / ``{"model": ...}`` containers and
-    strips the ``module.`` (DataParallel) and ``bert.`` prefixes.  Every
-    parameter and buffer the model owns must be present with its shape
-    (else ValueError / RuntimeError); keys the model does not own, such as a
-    VQA ``ans_classifier``, are returned for the caller to log."""
+def _read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch checkpoint file as a flat dict: ``{"state_dict": ...}`` /
+    ``{"model": ...}`` containers unwrapped, the ``module.`` (DataParallel)
+    prefix stripped."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory: the port serves torch checkpoint files "
@@ -172,7 +199,11 @@ def load_vlp_checkpoint(model: nn.Module, path: str) -> List[str]:
         if isinstance(obj.get(wrapper), Mapping):
             obj = obj[wrapper]
             break
-    sd = _strip(_strip(dict(obj), "module."), "bert.")
+    return _strip(dict(obj), "module.")
+
+
+def _load_strict(model: nn.Module, sd: Dict[str, torch.Tensor],
+                 path: str) -> List[str]:
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
     if missing:
@@ -180,3 +211,19 @@ def load_vlp_checkpoint(model: nn.Module, path: str) -> List[str]:
                          f"keys, e.g. {missing[:5]}")
     model.load_state_dict({k: sd[k] for k in own}, strict=True)
     return sorted(set(sd) - set(own))
+
+
+def load_vlp_checkpoint(model: nn.Module, path: str) -> List[str]:
+    """Load a torch finetune checkpoint file into ``model``, with the
+    ``bert.`` prefix stripped too.  Every parameter and buffer the model
+    owns must be present with its shape (else ValueError / RuntimeError);
+    keys the model does not own, such as a VQA ``ans_classifier``, are
+    returned for the caller to log."""
+    return _load_strict(model, _strip(_read_checkpoint(path), "bert."),
+                        path)
+
+
+def load_cxrbert_checkpoint(model: nn.Module, path: str) -> List[str]:
+    """Load a pretrain checkpoint file in the CXRBERT layout into
+    ``model``, as strictly as ``load_vlp_checkpoint``."""
+    return _load_strict(model, _read_checkpoint(path), path)

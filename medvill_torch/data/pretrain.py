@@ -1,0 +1,183 @@
+"""Pretraining data pipeline: JSONL -> numpy batches of (ids, labels, spec)
+(a copy of medvill_tpu/data/pretrain.py without its multi-host sharding,
+mid-epoch resume and device-placement helpers).
+
+Each example carries a 2-int mask spec ``(variant, txt_len)`` instead of an
+``[L, L]`` mask (data/masks.py).  JSONL schema (reference:
+dataset_origin.py:211-216): ``{"id", "split", "label", "text", "img"}``.
+From the same records, tokenizer, config and seed the batches equal the JAX
+package's bit for bit.
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from medvill_torch.config import MaskVariant, PretrainConfig
+from medvill_torch.data import images as image_lib
+from medvill_torch.data.sampling import (random_pair_sampling, random_word,
+                                         truncate_txt)
+
+
+class CXRPretrainDataset:
+    """Per-example processing; indexable like the torch Dataset."""
+
+    def __init__(self, data_path_or_records, tokenizer, cfg: PretrainConfig,
+                 seed: int = 0, image_loader=None):
+        if isinstance(data_path_or_records, str):
+            self.data_dir = os.path.dirname(data_path_or_records)
+            with open(data_path_or_records) as f:
+                self.data = [json.loads(line) for line in f]
+        else:
+            self.data_dir = ""
+            self.data = list(data_path_or_records)
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.seq_len = cfg.seq_len
+        self.num_image_embeds = cfg.image.num_image_embeds
+        self.vocab = tokenizer.vocab
+        self.vocab_len = len(self.vocab)
+        self.rng = random.Random(seed)
+        self.image_loader = image_loader or self._default_image_loader
+        self.static_variant = cfg.resolve_variant()  # None => Mixed
+
+    def _default_image_loader(self, img_path: str) -> np.ndarray:
+        return image_lib.load_image(
+            os.path.join(self.data_dir, img_path), self.cfg.image.img_size,
+            channels=self.cfg.image.img_channel,
+            # the 512 path skips the resize, as the reference does
+            # (helper.py:19-27): dataset images are already 512
+            do_resize=(self.cfg.image.img_size == 224))
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        return self.fetch(idx)
+
+    def fetch(self, idx: int,
+              rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+        """Like ``__getitem__`` with an optional per-sample RNG (used by
+        ``BatchLoader(workers>1)``); ``None`` draws from the shared
+        sequential stream."""
+        rng = rng or self.rng
+        origin_txt, img_path, is_aligned, _ = random_pair_sampling(
+            idx, self.data, rng)
+        encoded = self.tokenizer.tokenize_to_ids(origin_txt)
+        truncate_txt(encoded, self.seq_len)
+        input_ids, txt_labels = random_word(encoded, self.vocab_len,
+                                            self.vocab["[MASK]"], rng)
+
+        # [SEP] + label layout (reference: dataset_origin.py:104-126; the
+        # disturbing layout adds a leading -100 for the extra text-CLS)
+        input_ids = input_ids + [self.vocab["[SEP]"]]
+        if self.cfg.disturbing_mask:
+            txt_labels_t = [-100] + txt_labels + [-100]
+        else:
+            txt_labels_t = txt_labels + [-100]
+        txt_labels_i = [-100] * (self.num_image_embeds + 2)
+
+        txt_len = len(input_ids)  # valid text positions incl. [SEP]
+        n_pad = self.seq_len - txt_len + 1
+        input_ids = input_ids + [self.vocab["[PAD]"]] * n_pad
+        txt_labels_t = txt_labels_t + [-100] * n_pad
+        segment = [1] * (self.seq_len + 1)  # reference: dataset_origin.py:129
+
+        if self.static_variant is None:
+            # Mixed: per-sample weighted choice (dataset_origin.py:152-156)
+            variant = (MaskVariant.FULL
+                       if rng.random() < self.cfg.bi_prob else MaskVariant.S2S)
+        else:
+            variant = self.static_variant
+
+        return dict(
+            cls_tok=np.array([self.vocab["[CLS]"]], np.int32),
+            input_txt=np.array(input_ids, np.int32),
+            txt_labels=np.array(txt_labels_i + txt_labels_t, np.int32),
+            mask_spec=np.array([int(variant), txt_len], np.int32),
+            image=image_lib.as_wire_image(self.image_loader(img_path)),
+            segment=np.array(segment, np.int32),
+            is_aligned=np.int32(is_aligned),
+            sep_tok=np.array([self.vocab["[SEP]"]], np.int32),
+        )
+
+
+def collate(samples: Sequence[Dict[str, np.ndarray]]
+            ) -> Dict[str, np.ndarray]:
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class BatchLoader:
+    """Epoch iterator with shuffling (reference: DataLoader,
+    main_origin.py:52-54).  ``drop_last`` (default) keeps every batch the
+    same shape.  ``workers > 1`` fetches each batch's samples on a thread
+    pool, each sample with an RNG derived from (seed, epoch, index), so an
+    epoch is the same for any worker count; ``workers == 1`` draws from the
+    dataset's shared sequential stream.  The shuffle order is numpy's
+    ``default_rng(seed + epoch)``, as in the JAX package.  ``close`` stops
+    the thread pool."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, workers: int = 1, drop_last: bool = True):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self.workers = workers
+        self.drop_last = drop_last
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def __len__(self) -> int:
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
+        return -(-len(self.dataset) // self.batch_size)
+
+    def _fetch(self, idxs) -> List[Dict[str, np.ndarray]]:
+        if self.workers <= 1:
+            return [self.dataset[int(j)] for j in idxs]
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.workers)
+        fetch = getattr(self.dataset, "fetch", None)
+        if fetch is None:
+            return list(self._pool.map(lambda j: self.dataset[int(j)], idxs))
+        epoch = self.epoch
+        return list(self._pool.map(
+            lambda j: fetch(int(j), random.Random(
+                f"{self.seed}/{epoch}/{int(j)}")), idxs))
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        # advanced before the fetches, as in the JAX package, so the
+        # per-sample RNGs of epoch e are keyed by e + 1 there too
+        self.epoch += 1
+        B = self.batch_size
+        for i in range(len(self)):
+            yield collate(self._fetch(order[i * B:(i + 1) * B]))
+
+
+def synthetic_records(n: int, rng: Optional[random.Random] = None,
+                      n_labels: int = 5, words: Optional[List[str]] = None
+                      ) -> List[dict]:
+    """Synthetic JSONL-shaped records for tests and smoke runs."""
+    rng = rng or random.Random(0)
+    words = words or [f"word{i}" for i in range(50)]
+    recs = []
+    for i in range(n):
+        text = " ".join(rng.choices(words, k=rng.randint(5, 30)))
+        recs.append(dict(id=str(i), split="train",
+                         label=f"label{rng.randrange(n_labels)}",
+                         text=text, img=f"img{i}.jpg"))
+    return recs

@@ -1,4 +1,4 @@
-"""BERT encoder stack in PyTorch (post-LN), inference path.
+"""BERT encoder stack in PyTorch (post-LN).
 
 The counterpart of medvill_tpu/models/bert.py.  Module and parameter names
 follow the reference's torch layout (``attention.self.query``,
@@ -11,10 +11,17 @@ LayerNorm statistics and softmax are f32, GELU is the exact erf form in the
 compute dtype.  ``prepare_for_compute`` (models/seq2seq.py) may store the
 matmul weights in the compute dtype once, which makes the casts here no-ops.
 
-Dropout is absent: this is the decode path, which the JAX package runs with
-``deterministic=True``; training (and ``remat``, which only matters there)
-is a later slice.  ``fused_qkv`` changes only the JAX parameter tree, not the
-math, so it has no counterpart here.
+Dropout follows the JAX modules: every forward takes ``deterministic``
+(default True, the decode path) and, for training, a ``DropoutRNG``
+(ops/dropout.py).  With ``deterministic=False`` the embeddings and the
+hidden states are dropped at ``hidden_dropout_prob`` (Bernoulli masks from
+``rng.generator``), the attention probabilities at
+``attention_probs_dropout_prob`` (by ``mha_reference`` or, through
+``attention_fn``, by the attention kernel with a seed from the rng), and
+``FusedDropAddLN`` runs the fused kernel at ``hidden_dropout_prob`` with a
+fresh seed per call.  ``remat``/``remat_mode`` (a memory knob) are not
+ported; ``fused_qkv`` changes only the JAX parameter tree, not the math, so
+it has no counterpart here.
 
 The encoder takes an optional per-layer K/V cache that is written in place
 at ``cache_index`` (JAX writes a new array with ``dynamic_update_slice``);
@@ -30,6 +37,7 @@ from torch import nn
 
 from medvill_torch.config import BertConfig
 from medvill_torch.ops.attention import mha_reference
+from medvill_torch.ops.dropout import DropoutRNG, dropout
 from medvill_torch.ops.fused_ln import fused_dropout_add_ln
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]
@@ -52,14 +60,26 @@ def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
                         ln.eps).to(dtype)
 
 
+def maybe_dropout(x: torch.Tensor, rate: float, deterministic: bool,
+                  rng: Optional[DropoutRNG]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)(x, deterministic)``."""
+    if deterministic or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("dropout is on (deterministic=False) but no rng "
+                         "was given")
+    return dropout(x, rate, rng)
+
+
 class BertEmbeddings(nn.Module):
-    """word + position + token-type embeddings (f32) -> LayerNorm.  Without
-    ``position_ids`` positions are ``arange(L)``; without ``token_type_ids``
-    types are 0."""
+    """word + position + token-type embeddings (f32) -> LayerNorm ->
+    dropout.  Without ``position_ids`` positions are ``arange(L)``; without
+    ``token_type_ids`` types are 0."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.dtype = compute_dtype(cfg)
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 cfg.hidden_size)
@@ -69,7 +89,9 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_ids: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         B, L = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(
@@ -79,7 +101,14 @@ class BertEmbeddings(nn.Module):
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))
-        return layer_norm(self.LayerNorm, x, self.dtype)
+        return self.norm_and_drop(x, deterministic, rng)
+
+    def norm_and_drop(self, x: torch.Tensor, deterministic: bool = True,
+                      rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """The shared LayerNorm and dropout (the image tokens of the joint
+        encoder go through them too)."""
+        x = layer_norm(self.LayerNorm, x, self.dtype)
+        return maybe_dropout(x, self.dropout_rate, deterministic, rng)
 
 
 class BertSelfAttention(nn.Module):
@@ -93,12 +122,15 @@ class BertSelfAttention(nn.Module):
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 attention_fn=None, kv_cache: Optional[KVCache] = None,
-                cache_index: Optional[int] = None
+                cache_index: Optional[int] = None, deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         """Returns (context [B, L, hidden], the updated cache or None).
         With a cache, the new K/V are written at [cache_index, +L) and
         attention runs over the whole cache (the bias masks what is not
-        written yet)."""
+        written yet).  ``attention_fn(q, k, v, bias, rng=, deterministic=)``
+        replaces ``mha_reference`` (ops/flash_attention.py's
+        ``make_attention_fn``)."""
         cfg = self.cfg
         B, L, _ = hidden.shape
         shape = (B, L, cfg.num_attention_heads, cfg.head_dim)
@@ -110,8 +142,13 @@ class BertSelfAttention(nn.Module):
             ck[:, cache_index:cache_index + L] = k
             cv[:, cache_index:cache_index + L] = v
             k, v = ck, cv
-        fn = mha_reference if attention_fn is None else attention_fn
-        ctx = fn(q, k, v, bias)
+        if attention_fn is None:
+            ctx = mha_reference(q, k, v, bias,
+                                dropout_rate=cfg.attention_probs_dropout_prob,
+                                deterministic=deterministic, rng=rng)
+        else:
+            ctx = attention_fn(q, k, v, bias, rng=rng,
+                               deterministic=deterministic)
         return ctx.reshape(B, L, cfg.hidden_size), kv_cache
 
 
@@ -123,11 +160,20 @@ class FusedDropAddLN(nn.LayerNorm):
     def __init__(self, cfg: BertConfig, width: int):
         super().__init__(width, eps=cfg.layer_norm_eps)
         self.dtype = compute_dtype(cfg)
+        self.rate = cfg.hidden_dropout_prob
 
-    def forward(self, x: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
-        # inference: dropout rate 0, so the seed is unused
-        y = fused_dropout_add_ln(x, res, self.weight, self.bias, rate=0.0,
-                                 eps=self.eps, seed=0)
+    def forward(self, x: torch.Tensor, res: torch.Tensor,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        rate = 0.0 if deterministic else self.rate
+        seed = 0
+        if rate > 0.0:
+            if rng is None:
+                raise ValueError("dropout is on (deterministic=False) but no "
+                                 "rng was given")
+            seed = rng.next_seed()
+        y = fused_dropout_add_ln(x, res, self.weight, self.bias, rate=rate,
+                                 eps=self.eps, seed=seed)
         return y.to(self.dtype)
 
 
@@ -139,15 +185,19 @@ class BertSelfOutput(nn.Module):
     def __init__(self, cfg: BertConfig, in_features: int):
         super().__init__()
         self.dtype = compute_dtype(cfg)
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.dense = nn.Linear(in_features, cfg.hidden_size)
         self.LayerNorm = (FusedDropAddLN(cfg, cfg.hidden_size) if cfg.fused_ln
                           else nn.LayerNorm(cfg.hidden_size,
                                             eps=cfg.layer_norm_eps))
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor,
+                deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         x = dense(self.dense, x, self.dtype)
         if isinstance(self.LayerNorm, FusedDropAddLN):
-            return self.LayerNorm(x, residual)
+            return self.LayerNorm(x, residual, deterministic, rng)
+        x = maybe_dropout(x, self.dropout_rate, deterministic, rng)
         return layer_norm(self.LayerNorm, x + residual, self.dtype)
 
 
@@ -178,13 +228,15 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 attention_fn=None, kv_cache: Optional[KVCache] = None,
-                cache_index: Optional[int] = None
+                cache_index: Optional[int] = None, deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None
                 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
         ctx, new_cache = self.attention.self(
             hidden, bias, attention_fn=attention_fn, kv_cache=kv_cache,
-            cache_index=cache_index)
-        attn_out = self.attention.output(ctx, hidden)
-        out = self.output(self.intermediate(attn_out), attn_out)
+            cache_index=cache_index, deterministic=deterministic, rng=rng)
+        attn_out = self.attention.output(ctx, hidden, deterministic, rng)
+        out = self.output(self.intermediate(attn_out), attn_out,
+                          deterministic, rng)
         return out, new_cache
 
 
@@ -197,13 +249,15 @@ class BertEncoder(nn.Module):
     def forward(self, hidden: torch.Tensor, bias: Optional[torch.Tensor],
                 attention_fn=None,
                 kv_caches: Optional[List[KVCache]] = None,
-                cache_index: Optional[int] = None
+                cache_index: Optional[int] = None, deterministic: bool = True,
+                rng: Optional[DropoutRNG] = None
                 ) -> Tuple[torch.Tensor, Optional[List[KVCache]]]:
         new_caches = [] if kv_caches is not None else None
         for i, layer in enumerate(self.layer):
             cache = kv_caches[i] if kv_caches is not None else None
             hidden, new_cache = layer(hidden, bias, attention_fn=attention_fn,
-                                      kv_cache=cache, cache_index=cache_index)
+                                      kv_cache=cache, cache_index=cache_index,
+                                      deterministic=deterministic, rng=rng)
             if new_caches is not None:
                 new_caches.append(new_cache)
         return hidden, new_caches

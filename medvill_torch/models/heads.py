@@ -1,8 +1,12 @@
-"""MLM head (the JAX package's ``MLMHead``, medvill_tpu/models/heads.py:
-23-59): dense -> f32 erf-GELU -> LayerNorm (eps 1e-5, output in the compute
-dtype) -> optional ``relax_projection`` select by ``task_idx`` -> decoder
-tied to the word embeddings, with compute-dtype operands, f32 logits and a
-free ``bias``.
+"""Task heads (medvill_tpu/models/heads.py).
+
+- ``MLMHead`` (heads.py:23-59): dense -> f32 erf-GELU -> LayerNorm (eps
+  1e-5, unlike the embeddings' 1e-12; output in the compute dtype) ->
+  optional ``relax_projection`` select by ``task_idx`` -> decoder tied to
+  the word embeddings, with compute-dtype operands, f32 logits and a free
+  ``bias``.
+- ``ITMHead`` (heads.py:62-67): an f32 ``Linear(hidden -> 2)`` on the
+  pooled output, parameters under ``linear``.
 
 Parameter names follow the reference's ``cls.predictions.*``:
 ``transform.dense``, ``transform.LayerNorm``, ``decoder.weight`` (the shared
@@ -65,3 +69,13 @@ class MLMHead(nn.Module):
         # upcast of both operands followed by an f32 matmul
         w = self.decoder.weight.to(dt).float()
         return torch.matmul(x.float(), w.t()) + self.bias
+
+
+class ITMHead(nn.Module):
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.linear = nn.Linear(hidden_size, 2)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        """pooled [B, H] in any dtype -> f32 logits [B, 2]."""
+        return self.linear(pooled.float())

@@ -1,4 +1,4 @@
-"""ResNet-50 visual trunk (torchvision v1.5 topology), inference only.
+"""ResNet-50 visual trunk (torchvision v1.5 topology).
 
 The counterpart of medvill_tpu/models/resnet.py.  The public functions keep
 the JAX layout -- ``ResNet50Trunk`` takes NHWC images and returns the NHWC
@@ -10,8 +10,16 @@ convolutions run NCHW inside.  Parameters sit under the reference's
 - The TPU's space-to-depth stem (medvill_tpu resnet.py:25-64) is a layout
   trick with the same math; the port runs the plain 7x7/s2 conv on the same
   weights.
-- BatchNorm runs in eval mode on the running statistics (eps 1e-5), in f32
-  on the compute-dtype conv output, like flax ``BatchNorm(dtype=...)``.
+- BatchNorm (eps 1e-5) runs in f32 on the compute-dtype conv output, like
+  flax ``BatchNorm(dtype=...)``.  In eval mode (``train=False``, serving) it
+  uses the running statistics.  In train mode (``train=True``, pretraining
+  with ``train_cnn``) it follows flax ``BatchNorm(use_running_average=False,
+  momentum=0.9)`` (medvill_tpu/models/resnet.py:79-82,142-144), not torch's
+  training-mode ``batch_norm``: it normalizes with the batch statistics,
+  ``var = mean(x^2) - mean(x)^2`` clipped at 0 (flax ``_compute_stats``),
+  and updates the running statistics in place with that *biased* variance,
+  ``r = 0.9 r + 0.1 batch``.  This holds even when the trunk is frozen: a
+  frozen trunk gets no gradient, but its statistics still move.
 - Convolutions run in ``dtype`` (bf16 when serving); the caller decides
   whether cuDNN may use TF32 for f32 convolutions.
 """
@@ -29,9 +37,24 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                     conv.padding)
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps).to(dtype)
+BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
+
+
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
+        train: bool = False) -> torch.Tensor:
+    if not train:
+        return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
+                            bn.weight, bn.bias, False, 0.0, bn.eps).to(dtype)
+    xf = x.float()
+    mean = xf.mean((0, 2, 3))
+    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+    shape = (1, -1, 1, 1)
+    y = ((xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + bn.eps)
+         * bn.weight.view(shape) + bn.bias.view(shape))
+    return y.to(dtype)
 
 
 class Bottleneck(nn.Module):
@@ -51,14 +74,17 @@ class Bottleneck(nn.Module):
             nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
             nn.BatchNorm2d(out_ch)) if downsample else None)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = torch.relu(_bn(self.bn1, _conv(self.conv1, x, dtype), dtype))
-        y = torch.relu(_bn(self.bn2, _conv(self.conv2, y, dtype), dtype))
-        y = _bn(self.bn3, _conv(self.conv3, y, dtype), dtype)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                train: bool = False) -> torch.Tensor:
+        y = torch.relu(_bn(self.bn1, _conv(self.conv1, x, dtype), dtype,
+                           train))
+        y = torch.relu(_bn(self.bn2, _conv(self.conv2, y, dtype), dtype,
+                           train))
+        y = _bn(self.bn3, _conv(self.conv3, y, dtype), dtype, train)
         residual = x
         if self.downsample is not None:
             conv, bn = self.downsample
-            residual = _bn(bn, _conv(conv, x, dtype), dtype)
+            residual = _bn(bn, _conv(conv, x, dtype), dtype, train)
         return torch.relu(y + residual.to(y.dtype))
 
 
@@ -95,15 +121,17 @@ class ResNet50Trunk(nn.Module):
             nn.BatchNorm2d(width), nn.ReLU(),
             nn.MaxPool2d(3, stride=2, padding=1), *stages)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """``train`` selects BatchNorm on batch statistics with running
+        statistics updated (see the module docstring)."""
         dt = self.dtype
         x = device_normalize(x).permute(0, 3, 1, 2)
         conv1, bn1, _, _, *stages = self.model
-        x = torch.relu(_bn(bn1, _conv(conv1, x, dt), dt))
+        x = torch.relu(_bn(bn1, _conv(conv1, x, dt), dt, train))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage in stages:
             for block in stage:
-                x = block(x, dt)
+                x = block(x, dt, train)
         return x.permute(0, 2, 3, 1)
 
 

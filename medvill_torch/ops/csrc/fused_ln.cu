@@ -1,6 +1,7 @@
-// Fused dropout + residual-add + LayerNorm forward for Hopper (sm_90a).
+// Fused dropout + residual-add + LayerNorm for Hopper (sm_90a): forward
+// (K3) and backward (K4).
 //
-// Replaces the TPU kernel medvill_tpu/ops/fused_ln.py::_fwd_kernel
+// K3 replaces the TPU kernel medvill_tpu/ops/fused_ln.py::_fwd_kernel
 // (with _keep_mask and _stats): y = LN(dropout(x) + res) * gamma + beta,
 // f32 row statistics, output in x's dtype.
 //
@@ -23,6 +24,19 @@
 // arithmetic.  medvill_torch/ops/fused_ln.py::keep_mask computes the same
 // bits, so the kernel and its plain version agree bit for bit at any rate;
 // neither gives the TPU PRNG's bits.
+//
+// K4 replaces medvill_tpu/ops/fused_ln.py::_bwd_kernel: it recomputes the
+// keep mask and the row statistics from (x, res, seed), then
+// ds = rstd * (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat)), dres = ds,
+// dx = ds * keep / (1 - rate), and the partial sums dgamma = sum dy*xhat,
+// dbeta = sum dy.  Bound: memory, 3 reads (x, res, dy) and 2 writes (dx,
+// dres) per element.  K3's row layout again (one warp per row, the row in
+// registers, 16-byte vectors); each block of 4 warps walks a chunk of 64
+// rows, keeps its dgamma/dbeta sums in registers, reduces them across its
+// warps in shared memory and writes one f32 partial row, so the [n_blocks,
+// H] partials stay small (246 rows at R = 15696) and are summed outside the
+// kernel, as the JAX code sums its per-block partials.  The TPU kernel's
+// (8, H) slab per 256-row block is a TPU tiling artifact and is not copied.
 //
 // C interface for ctypes: pointers and the stream as void*, returns
 // cudaGetLastError() after the launch.  Allocates nothing; runs on `stream`.
@@ -161,6 +175,153 @@ fused_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
+constexpr int kBwdRowsPerBlock = 64;
+constexpr int kMaxH = 1024;
+
+template <typename T, int MAXC>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const float* __restrict__ gamma, const T* __restrict__ dy,
+                    T* __restrict__ dx, T* __restrict__ dres, float* __restrict__ dgamma_part,
+                    float* __restrict__ dbeta_part, int rows, int h, int dropout,
+                    uint32_t seed, uint32_t thresh, float scale, float eps) {
+  using V = Vec16<T>;
+  constexpr int N = V::N;
+  static_assert(MAXC * N <= 32, "the keep bits of a lane fit one uint32");
+  __shared__ float red_g[kWarpsPerBlock][kMaxH];
+  __shared__ float red_b[kWarpsPerBlock][kMaxH];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int chunks = h / N;
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  float acc_g[MAXC][N], acc_b[MAXC][N];
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) acc_g[i][j] = acc_b[i][j] = 0.f;
+
+  const int row0 = static_cast<int>(blockIdx.x) * kBwdRowsPerBlock;
+  const int row_end = min(rows, row0 + kBwdRowsPerBlock);
+  for (int row = row0 + warp; row < row_end; row += kWarpsPerBlock) {
+    const size_t base = static_cast<size_t>(row) * h;
+    const typename V::Raw* xr = reinterpret_cast<const typename V::Raw*>(x + base);
+    const typename V::Raw* rr = reinterpret_cast<const typename V::Raw*>(res + base);
+    const typename V::Raw* dyr = reinterpret_cast<const typename V::Raw*>(dy + base);
+    float v[MAXC][N], d[MAXC][N];
+    uint32_t keep_bits = 0xffffffffu;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        float a[N], b[N];
+        V::unpack(xr[c], a);
+        V::unpack(rr[c], b);
+        V::unpack(dyr[c], d[i]);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          float xv = a[j];
+          if (dropout) {
+            const uint32_t idx = static_cast<uint32_t>(row) * static_cast<uint32_t>(h) +
+                                 static_cast<uint32_t>(c * N + j);
+            if (fmix32(seed ^ idx) >= thresh) {
+              xv *= scale;
+            } else {
+              xv = 0.f;
+              keep_bits &= ~(1u << (i * N + j));
+            }
+          }
+          v[i][j] = xv + b[j];
+          sum += v[i][j];
+        }
+      }
+    }
+    const float mean = warp_sum(sum) / h;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      if (lane + 32 * i < chunks) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const float e = v[i][j] - mean;
+          sq += e * e;
+        }
+      }
+    }
+    const float rstd = 1.f / sqrtf(warp_sum(sq) / h + eps);
+    // v becomes xhat, d stays dy; sums of dy*g and dy*g*xhat
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+          const float4 g = g4[c * (N / 4) + q];
+          const float gg[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 4 * q + e;
+            v[i][j] = (v[i][j] - mean) * rstd;
+            const float dyg = d[i][j] * gg[e];
+            s1 += dyg;
+            s2 += dyg * v[i][j];
+            acc_g[i][j] += d[i][j] * v[i][j];
+            acc_b[i][j] += d[i][j];
+          }
+        }
+      }
+    }
+    const float m1 = warp_sum(s1) / h;
+    const float m2 = warp_sum(s2) / h;
+    typename V::Raw* dxr = reinterpret_cast<typename V::Raw*>(dx + base);
+    typename V::Raw* drr = reinterpret_cast<typename V::Raw*>(dres + base);
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < chunks) {
+        float ds[N], dxv[N];
+#pragma unroll
+        for (int q = 0; q < N / 4; ++q) {
+          const float4 g = g4[c * (N / 4) + q];
+          const float gg[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int j = 4 * q + e;
+            ds[j] = rstd * (d[i][j] * gg[e] - m1 - v[i][j] * m2);
+            dxv[j] = dropout ? ((keep_bits >> (i * N + j)) & 1u ? ds[j] * scale : 0.f) : ds[j];
+          }
+        }
+        drr[c] = V::pack(ds);
+        dxr[c] = V::pack(dxv);
+      }
+    }
+  }
+
+  // the block's dgamma / dbeta: lane sums -> per-warp rows -> one partial row
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) {
+    const int c = lane + 32 * i;
+    if (c < chunks) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        red_g[warp][c * N + j] = acc_g[i][j];
+        red_b[warp][c * N + j] = acc_b[i][j];
+      }
+    }
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < h; col += kWarpsPerBlock * 32) {
+    float g = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsPerBlock; ++w) {
+      g += red_g[w][col];
+      b += red_b[w][col];
+    }
+    dgamma_part[static_cast<size_t>(blockIdx.x) * h + col] = g;
+    dbeta_part[static_cast<size_t>(blockIdx.x) * h + col] = b;
+  }
+}
+
 }  // namespace
 
 // is_bf16: 1 for bf16 x/res/y, 0 for f32.  h must be a multiple of the
@@ -184,6 +345,35 @@ extern "C" int medvill_fused_ln_fwd(const void* x, const void* res, const void* 
     fused_ln_fwd_kernel<float, 8><<<grid, block, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(res), g, b,
         static_cast<float*>(y), rows, h, dropout, seed, thresh, scale, eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4.  dy, dx, dres: like x; dgamma_part, dbeta_part: f32 [n_blocks, h] with
+// n_blocks = ceil(rows / 64), summed over blocks by the caller.
+extern "C" int medvill_fused_ln_bwd(const void* x, const void* res, const void* gamma,
+                                    const void* dy, void* dx, void* dres, void* dgamma_part,
+                                    void* dbeta_part, int rows, int h, int is_bf16,
+                                    int dropout, unsigned int seed, unsigned int thresh,
+                                    float scale, float eps, void* stream) {
+  if (rows <= 0) return 0;
+  const dim3 block(kWarpsPerBlock * 32);
+  const dim3 grid((rows + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gamma);
+  float* pg = static_cast<float*>(dgamma_part);
+  float* pb = static_cast<float*>(dbeta_part);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    fused_ln_bwd_kernel<T, 4><<<grid, block, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(res), g, static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<T*>(dres), pg, pb, rows, h, dropout, seed, thresh,
+        scale, eps);
+  } else {
+    fused_ln_bwd_kernel<float, 8><<<grid, block, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(res), g,
+        static_cast<const float*>(dy), static_cast<float*>(dx), static_cast<float*>(dres), pg,
+        pb, rows, h, dropout, seed, thresh, scale, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }

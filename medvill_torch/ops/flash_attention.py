@@ -1,0 +1,284 @@
+"""Mask-spec attention: the forward kernel K1 and the backward kernel K2.
+
+The counterpart of medvill_tpu/ops/flash_attention.py.  The mask is never
+materialized: each sample carries a spec ``(variant, txt_len)`` and the
+kernels compute visibility per element (``data.masks.visible``, the JAX
+``_visible``, and nothing past ``l_real``), adding -10000 to the scaled
+score of a masked cell.  Mask families: ``FAMILY_PRETRAIN``
+(FULL/S2S/BAR/NONCROSS/ATTN1D over ``[CLS] img(N) [SEP] txt``) and
+``FAMILY_SEQ2SEQ`` (finetune bi/s2s/bar with ``txt_len`` carrying
+n_tokens).
+
+- ``attn_fwd`` -> (o, lse): a CPU tensor takes ``attn_fwd_plain``; a CUDA
+  tensor launches K1 (``csrc/flash_attention.cu``, replacing the TPU kernel
+  ``_attn_fwd_kernel``) or raises.
+- ``attn_bwd`` -> (dq, dk, dv): ``attn_bwd_plain`` on the CPU, K2 on the
+  card (replacing ``_attn_bwd_kernel``): the recompute backward from q, k,
+  v, the saved row log-sum-exp and the regenerated keep mask.
+- ``flash_mha`` is the differentiable entry (a ``torch.autograd.Function``
+  whose forward is ``attn_fwd`` and backward ``attn_bwd``);
+  ``make_attention_fn`` adapts it to the BERT stack's ``attention_fn``
+  hook and ignores the additive ``bias``.
+
+Layout: q, k, v, o are [B, L, heads, D], the layout of the Q/K/V
+projections' ``view``; the kernels read and write it directly.  The TPU
+path pads L to 16/128 multiples and groups heads per block (with the
+``MEDVILL_ATTN_*`` environment overrides); none of that tuning applies to
+this kernel, which tiles L by 64 and masks the ragged edge itself.
+
+Dropout keep mask: ``keep_mask`` below, a pure function of (seed, b, head,
+r, c): kept iff ``fmix32(seed ^ (((b * heads + head) * L + r) * L + c)) >=
+floor(rate * 2**32)`` in uint32 arithmetic, computed the same way by the
+kernels, so K1, K2 and the plain versions agree bit for bit.  It does not
+reproduce the TPU PRNG; the JAX and torch outputs agree only at rate 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from medvill_torch.data import masks
+from medvill_torch.data.masks import FAMILY_PRETRAIN, FAMILY_SEQ2SEQ  # noqa: F401
+from medvill_torch.ops import build
+from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.ops.fused_ln import _M32, _fmix32, _threshold
+
+NEG = -10000.0
+HEAD_DIM = 64      # the kernel's head dim (kD in the source)
+_MAX_L = 4096
+
+
+def score_bias(spec: torch.Tensor, L: int, img_block: int, l_real: int,
+               family: int) -> torch.Tensor:
+    """[B, 1, L, L] f32: 0 where visible, -10000 elsewhere."""
+    r = torch.arange(L, device=spec.device).view(1, 1, L, 1)
+    c = torch.arange(L, device=spec.device).view(1, 1, 1, L)
+    vis = masks.visible(family, spec[:, 0].view(-1, 1, 1, 1),
+                        spec[:, 1].view(-1, 1, 1, 1), r, c, img_block)
+    return torch.where(vis & (c < l_real), 0.0, NEG)
+
+
+def keep_mask(seed: int, B: int, heads: int, L: int, rate: float,
+              device="cpu") -> torch.Tensor:
+    """[B, heads, L, L] bool attention-dropout keep mask (see the module
+    docstring)."""
+    idx = torch.arange(B * heads * L * L, dtype=torch.int64,
+                       device=device) & _M32
+    bits = _fmix32(idx ^ (int(seed) & _M32))
+    return (bits >= _threshold(rate)).view(B, heads, L, L)
+
+
+def _scores(q, k, spec, img_block, l_real, family):
+    """Scaled scores plus the -10000 bias, [B, heads, L, L] f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return s + score_bias(spec, q.shape[1], img_block, l_real, family)
+
+
+def attn_fwd_plain(q, k, v, spec, *, img_block: int, l_real: int,
+                   family: int, rate: float, seed: int):
+    """The plain PyTorch version of K1: (o [B, L, heads, D] in q's dtype,
+    lse [B, heads, L] f32).  Dropout acts on the probabilities before P.V;
+    O is divided by the undropped row sum."""
+    B, L, heads, _ = q.shape
+    s = _scores(q, k, spec, img_block, l_real, family)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(-1, keepdim=True)
+    lse = (m + torch.log(l)).squeeze(-1)
+    if rate > 0.0:
+        keep = keep_mask(seed, B, heads, L, rate, q.device)
+        e = torch.where(keep, e * (1.0 / (1.0 - rate)), 0.0)
+    o = torch.einsum("bhqk,bkhd->bqhd", e, v.float())
+    o = o / l.squeeze(-1).transpose(1, 2).unsqueeze(-1)
+    return o.to(q.dtype), lse
+
+
+def attn_bwd_plain(q, k, v, o, do, lse, spec, *, img_block: int,
+                   l_real: int, family: int, rate: float, seed: int):
+    """The plain PyTorch version of K2's recompute backward: (dq, dk, dv)
+    in q's dtype.  P = exp(S - lse); dV = P_drop^T dO; dP = (dO V^T) * keep
+    / (1 - rate); dS = P * (dP - rowsum(dO * O)); dQ = dS K * scale;
+    dK = dS^T Q * scale."""
+    B, L, heads, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    p = torch.exp(_scores(q, k, spec, img_block, l_real, family)
+                  - lse.unsqueeze(-1))
+    dof = do.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    p_drop = p
+    if rate > 0.0:
+        keep = keep_mask(seed, B, heads, L, rate, q.device)
+        inv = 1.0 / (1.0 - rate)
+        p_drop = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, dof)
+    dvec = (dof * o.float()).sum(-1).transpose(1, 2).unsqueeze(-1)
+    ds = p * (dp - dvec)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _kernels():
+    lib = build.library("flash_attention")
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    fwd, bwd = lib.medvill_attn_fwd, lib.medvill_attn_bwd
+    fwd.argtypes = [p] * 6 + [i] * 8 + [u, u, f, f, p]
+    bwd.argtypes = [p] * 11 + [i] * 8 + [u, u, f, f, p]
+    fwd.restype = bwd.restype = i
+    return fwd, bwd
+
+
+def _check(spec, *tensors) -> None:
+    q = tensors[0]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention kernel takes f32 or bf16, got {q.dtype}")
+    if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"attention kernel takes [B, L, heads, {HEAD_DIM}], "
+                         f"got {tuple(q.shape)}")
+    if not 1 <= q.shape[1] <= _MAX_L:
+        raise ValueError(f"attention kernel takes 1 <= L <= {_MAX_L}, got "
+                         f"{q.shape[1]}")
+    for t in tensors:
+        if t.dtype != q.dtype or t.shape != q.shape:
+            raise TypeError(f"q/k/v/o/dO must match: {t.dtype}"
+                            f"{tuple(t.shape)} vs {q.dtype}{tuple(q.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"a tensor is on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("attention kernel inputs must be contiguous and "
+                             "16-byte aligned")
+    if spec.dtype != torch.int32 or tuple(spec.shape) != (q.shape[0], 2) \
+            or spec.device != q.device or not spec.is_contiguous():
+        raise TypeError(f"spec must be contiguous int32 [{q.shape[0]}, 2] on "
+                        f"{q.device}, got {spec.dtype}{tuple(spec.shape)} on "
+                        f"{spec.device}")
+
+
+def _scalars(q, img_block, l_real, family, rate, seed):
+    B, L, heads, D = q.shape
+    return (B, L, heads, int(q.dtype == torch.bfloat16), int(img_block),
+            int(l_real), int(family), int(rate > 0.0), int(seed) & _M32,
+            _threshold(rate), 1.0 / (1.0 - rate), 1.0 / math.sqrt(D))
+
+
+def attn_fwd(q, k, v, spec, *, img_block: int, l_real: int, family: int,
+             rate: float, seed: int):
+    """(o, lse): the plain version for CPU tensors, K1 for CUDA ones."""
+    if q.device.type == "cpu":
+        return attn_fwd_plain(q, k, v, spec, img_block=img_block,
+                              l_real=l_real, family=family, rate=rate,
+                              seed=seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: no kernel for {q.device}")
+    _check(spec, q, k, v)
+    B, L, heads, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty(B, heads, L, device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        err = _kernels()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), spec.data_ptr(),
+            o.data_ptr(), lse.data_ptr(),
+            *_scalars(q, img_block, l_real, family, rate, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention forward kernel failed: CUDA error "
+                           f"{err}")
+    attn_fwd.launches += 1
+    return o, lse
+
+
+attn_fwd.launches = 0
+
+
+def attn_bwd(q, k, v, o, do, lse, spec, *, img_block: int, l_real: int,
+             family: int, rate: float, seed: int):
+    """(dq, dk, dv): the plain version for CPU tensors, K2 for CUDA ones
+    (three launches, counted as one)."""
+    if q.device.type == "cpu":
+        return attn_bwd_plain(q, k, v, o, do, lse, spec, img_block=img_block,
+                              l_real=l_real, family=family, rate=rate,
+                              seed=seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha: no kernel for {q.device}")
+    _check(spec, q, k, v, o, do)
+    B, L, heads, _ = q.shape
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, heads, L) \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise TypeError(f"lse must be contiguous f32 [{B}, {heads}, {L}]")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dvec = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _kernels()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), spec.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
+            *_scalars(q, img_block, l_real, family, rate, seed),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"attention backward kernel failed: CUDA error "
+                           f"{err}")
+    attn_bwd.launches += 1
+    return dq, dk, dv
+
+
+attn_bwd.launches = 0
+
+
+class _FlashMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, spec, img_block, l_real, family, rate, seed):
+        kw = dict(img_block=img_block, l_real=l_real, family=family,
+                  rate=rate, seed=seed)
+        o, lse = attn_fwd(q, k, v, spec, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, spec)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, spec = ctx.saved_tensors
+        dq, dk, dv = attn_bwd(q, k, v, o, do.contiguous(), lse, spec,
+                              **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              spec: torch.Tensor, *, img_block: int, l_real: int,
+              family: int = FAMILY_PRETRAIN, dropout_rate: float = 0.0,
+              seed: int = 0, deterministic: bool = True) -> torch.Tensor:
+    """q/k/v: [B, L, heads, D]; spec: [B, 2] int32 (variant, txt_len).
+    Returns [B, L, heads, D] in q's dtype, differentiable in q, k, v."""
+    rate = 0.0 if deterministic else float(dropout_rate)
+    return _FlashMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                           spec.to(torch.int32).contiguous(), int(img_block),
+                           int(l_real), int(family), rate, int(seed))
+
+
+def make_attention_fn(spec: torch.Tensor, img_block: int,
+                      family: int = FAMILY_PRETRAIN,
+                      dropout_rate: float = 0.0):
+    """Adapter for the BERT stack's ``attention_fn`` hook: ignores the
+    additive ``bias`` (the spec is the mask) and draws a fresh kernel seed
+    from ``rng`` for each call with dropout on."""
+
+    def fn(q, k, v, bias, rng: Optional[DropoutRNG] = None,
+           deterministic: bool = True):
+        del bias
+        seed = 0
+        if not deterministic and dropout_rate > 0.0:
+            if rng is None:
+                raise ValueError("attention dropout needs an rng")
+            seed = rng.next_seed()
+        return flash_mha(q, k, v, spec, img_block=img_block,
+                         l_real=q.shape[1], family=family,
+                         dropout_rate=dropout_rate, seed=seed,
+                         deterministic=deterministic)
+
+    return fn

@@ -2,10 +2,15 @@
 
 ``fused_dropout_add_ln`` has the signature and semantics of the JAX
 package's (medvill_tpu/ops/fused_ln.py:185-215): ``[..., H]`` inputs, output
-in x's dtype, f32 row statistics.  A CPU tensor goes to
-``fused_dropout_add_ln_plain``; a CUDA tensor launches the Hopper kernel in
-``csrc/fused_ln.cu`` (which replaces the TPU kernel ``_fwd_kernel``) or
-raises.  There is no fallback from the card to the plain version.
+in x's dtype, f32 row statistics, differentiable in x, res, gamma and beta.
+Its forward is ``fused_ln_fwd`` and its backward ``fused_ln_bwd``: a CPU
+tensor goes to the plain PyTorch version (``fused_dropout_add_ln_plain``,
+``fused_dropout_add_ln_bwd_plain``); a CUDA tensor launches the Hopper
+kernel in ``csrc/fused_ln.cu`` (K3, replacing the TPU kernel
+``_fwd_kernel``; K4, replacing ``_bwd_kernel``) or raises.  There is no
+fallback from the card to the plain version.  The backward recomputes the
+keep mask and the row statistics from (x, res, seed), as the TPU kernel
+does, so nothing but the inputs is saved.
 
 Dropout keep mask: ``keep_mask`` below, a pure function of
 ``(seed, row, col)`` -- kept iff ``fmix32(seed ^ (row * H + col)) >=
@@ -76,14 +81,43 @@ def fused_dropout_add_ln_plain(x: torch.Tensor, res: torch.Tensor,
     return y.to(x.dtype).reshape(shape)
 
 
+def fused_dropout_add_ln_bwd_plain(x: torch.Tensor, res: torch.Tensor,
+                                   gamma: torch.Tensor, dy: torch.Tensor, *,
+                                   rate: float, eps: float, seed: int):
+    """The plain PyTorch version of K4's arithmetic: (dx, dres, dgamma,
+    dbeta), dx in x's dtype, dres in res's, dgamma/dbeta f32."""
+    shape = x.shape
+    h = shape[-1]
+    x2 = x.reshape(-1, h).float()
+    keep = None
+    if rate > 0.0:
+        keep = keep_mask(seed, x2.shape[0], h, rate, x.device)
+        x2 = torch.where(keep, x2 * (1.0 / (1.0 - rate)), 0.0)
+    s = x2 + res.reshape(-1, h).float()
+    mean = s.mean(-1, keepdim=True)
+    var = (s - mean).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (s - mean) * rstd
+    dy2 = dy.reshape(-1, h).float()
+    dyg = dy2 * gamma.float()
+    m1 = dyg.mean(-1, keepdim=True)
+    m2 = (dyg * xhat).mean(-1, keepdim=True)
+    ds = rstd * (dyg - m1 - xhat * m2)
+    dx = ds if keep is None else torch.where(keep, ds * (1.0 / (1.0 - rate)),
+                                             0.0)
+    return (dx.to(x.dtype).reshape(shape), ds.to(res.dtype).reshape(shape),
+            (dy2 * xhat).sum(0), dy2.sum(0))
+
+
 @functools.cache
-def _kernel():
-    fn = build.library("fused_ln").medvill_fused_ln_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_uint32,
-                   ctypes.c_uint32, ctypes.c_float, ctypes.c_float, p]
-    fn.restype = i
-    return fn
+def _kernels():
+    lib = build.library("fused_ln")
+    p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    fwd, bwd = lib.medvill_fused_ln_fwd, lib.medvill_fused_ln_bwd
+    fwd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, f, f, p]
+    bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, u, u, f, f, p]
+    fwd.restype = bwd.restype = i
+    return fwd, bwd
 
 
 def _check(x, res, gamma, beta) -> None:
@@ -108,14 +142,10 @@ def _check(x, res, gamma, beta) -> None:
                          f"{vec} for {x.dtype}, got H={h}")
 
 
-def fused_dropout_add_ln(x: torch.Tensor, res: torch.Tensor,
-                         gamma: torch.Tensor, beta: torch.Tensor, *,
-                         rate: float, eps: float, seed: int) -> torch.Tensor:
-    """``LayerNorm(dropout(x) + res) * gamma + beta`` in one pass.
-
-    x, res: [..., H] (f32 or bf16, same dtype); gamma, beta: [H] f32; seed:
-    int (ignored when rate == 0).  Output dtype follows x.  Inference only:
-    the backward kernel is not ported yet."""
+def fused_ln_fwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
+                 beta: torch.Tensor, *, rate: float, eps: float,
+                 seed: int) -> torch.Tensor:
+    """The forward: the plain version for CPU tensors, K3 for CUDA ones."""
     if x.device.type == "cpu":
         return fused_dropout_add_ln_plain(x, res, gamma, beta, rate=rate,
                                           eps=eps, seed=seed)
@@ -126,7 +156,7 @@ def fused_dropout_add_ln(x: torch.Tensor, res: torch.Tensor,
     h = x.shape[-1]
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = _kernel()(
+        err = _kernels()[0](
             x.data_ptr(), res.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             y.data_ptr(), x.numel() // h, h, int(x.dtype == torch.bfloat16),
             int(rate > 0.0), int(seed) & _M32, thresh,
@@ -134,8 +164,79 @@ def fused_dropout_add_ln(x: torch.Tensor, res: torch.Tensor,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_ln kernel launch failed: CUDA error {err}")
-    fused_dropout_add_ln.launches += 1
+    fused_ln_fwd.launches += 1
     return y
 
 
-fused_dropout_add_ln.launches = 0
+fused_ln_fwd.launches = 0
+
+_BWD_ROWS_PER_BLOCK = 64  # kBwdRowsPerBlock in csrc/fused_ln.cu
+
+
+def fused_ln_bwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
+                 dy: torch.Tensor, *, rate: float, eps: float, seed: int):
+    """The backward, (dx, dres, dgamma, dbeta): the plain version for CPU
+    tensors, K4 for CUDA ones.  K4 writes one f32 partial row of dgamma and
+    dbeta per block of 64 rows; they are summed here."""
+    if x.device.type == "cpu":
+        return fused_dropout_add_ln_bwd_plain(x, res, gamma, dy, rate=rate,
+                                              eps=eps, seed=seed)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dropout_add_ln: no kernel for {x.device}")
+    _check(x, res, gamma, gamma)
+    if dy.dtype != x.dtype or dy.shape != x.shape or not dy.is_contiguous() \
+            or dy.data_ptr() % 16 or dy.device != x.device:
+        raise ValueError(f"dy must match x and be contiguous: "
+                         f"{dy.dtype}{tuple(dy.shape)} on {dy.device}")
+    thresh = _threshold(rate)
+    h = x.shape[-1]
+    rows = x.numel() // h
+    n_blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
+    dx, dres = torch.empty_like(x), torch.empty_like(res)
+    part = torch.empty(2, max(n_blocks, 1), h, device=x.device,
+                       dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = _kernels()[1](
+            x.data_ptr(), res.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), dres.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), rows, h, int(x.dtype == torch.bfloat16),
+            int(rate > 0.0), int(seed) & _M32, thresh, 1.0 / (1.0 - rate),
+            eps, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_ln backward kernel launch failed: CUDA "
+                           f"error {err}")
+    fused_ln_bwd.launches += 1
+    dgamma, dbeta = part[:, :n_blocks].sum(1)
+    return dx, dres, dgamma, dbeta
+
+
+fused_ln_bwd.launches = 0
+
+
+class _FusedDropAddLN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, res, gamma, beta, rate, eps, seed):
+        ctx.save_for_backward(x, res, gamma)
+        ctx.args = (rate, eps, seed)
+        return fused_ln_fwd(x, res, gamma, beta, rate=rate, eps=eps,
+                            seed=seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, res, gamma = ctx.saved_tensors
+        rate, eps, seed = ctx.args
+        dx, dres, dgamma, dbeta = fused_ln_bwd(
+            x, res, gamma, dy.contiguous(), rate=rate, eps=eps, seed=seed)
+        return dx, dres, dgamma, dbeta, None, None, None
+
+
+def fused_dropout_add_ln(x: torch.Tensor, res: torch.Tensor,
+                         gamma: torch.Tensor, beta: torch.Tensor, *,
+                         rate: float, eps: float, seed: int) -> torch.Tensor:
+    """``LayerNorm(dropout(x) + res) * gamma + beta`` in one pass.
+
+    x, res: [..., H] (f32 or bf16, same dtype); gamma, beta: [H] f32; seed:
+    int (ignored when rate == 0).  Output dtype follows x; differentiable in
+    x, res, gamma and beta."""
+    return _FusedDropAddLN.apply(x, res, gamma, beta, float(rate),
+                                 float(eps), int(seed))

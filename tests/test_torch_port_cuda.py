@@ -1,6 +1,6 @@
-"""medvill_torch on the card: the fused LN CUDA kernel against its plain
-version, and a tiny model's decode on the card (kernel path) against the
-CPU (plain path).  Every test here needs a CUDA device and nvcc and skips
+"""medvill_torch on the card: the CUDA kernels (K1/K2 attention, K3/K4 fused
+LN) against their plain versions, and a tiny model's decode on the card
+(kernel path) against the CPU (plain path).  Every test here needs a CUDA device and nvcc and skips
 elsewhere; the file imports neither jax nor medvill_tpu, so it also runs on
 a GPU host without them:
 
@@ -16,6 +16,7 @@ import torch
 from medvill_torch.config import BertConfig, ImageEncoderConfig
 from medvill_torch.models import decoder
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
+from medvill_torch.ops import flash_attention as tfa
 from medvill_torch.ops import fused_ln as tfl
 
 pytestmark = pytest.mark.cuda
@@ -42,10 +43,10 @@ def test_kernel_matches_plain(cuda_device, rows, dtype, rate):
     gamma, beta = (torch.randn(768, device=cuda_device, generator=gen)
                    for _ in range(2))
     kw = dict(rate=rate, eps=1e-5, seed=9)
-    before = tfl.fused_dropout_add_ln.launches
+    before = tfl.fused_ln_fwd.launches
     got = tfl.fused_dropout_add_ln(x, res, gamma, beta, **kw)
     torch.cuda.synchronize()
-    assert tfl.fused_dropout_add_ln.launches == before + 1
+    assert tfl.fused_ln_fwd.launches == before + 1
     assert got.dtype == dtype and got.shape == x.shape
     want = tfl.fused_dropout_add_ln_plain(x, res, gamma, beta, **kw)
     tol = 1e-5 if dtype == torch.float32 else \
@@ -70,12 +71,124 @@ def test_tiny_decode_card_matches_cpu(cuda_device):
         0, 256, (2, 64, 64, 3), dtype=np.uint8))
     settings = decoder.DecodeSettings(max_txt_length=6, mask_word_id=4,
                                       eos_id=3)
-    before = tfl.fused_dropout_add_ln.launches
+    before = tfl.fused_ln_fwd.launches
     with torch.inference_mode():
         want_ids, want_lp, _ = decoder.greedy_decode(cpu_model.eval(), img,
                                                      settings, 2, 3)
         got_ids, got_lp, _ = decoder.greedy_decode(
             card_model, img.to(cuda_device), settings, 2, 3)
-    assert tfl.fused_dropout_add_ln.launches - before == 2 * 2 * (1 + 6)
+    assert tfl.fused_ln_fwd.launches - before == 2 * 2 * (1 + 6)
     assert torch.equal(got_ids.cpu(), want_ids)
     torch.testing.assert_close(got_lp.cpu(), want_lp, rtol=0, atol=1e-4)
+
+
+def _bf16_tol(want: torch.Tensor) -> float:
+    """One bf16 ulp of the largest magnitude: both sides compute in f32
+    from the same inputs and round once."""
+    return 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [16, 2064])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ln_backward_kernel_matches_plain(cuda_device, rows, dtype, rate):
+    """dx, dres: f32 1e-5 (summation order), bf16 one ulp; dgamma/dbeta sum
+    over rows in another order: 1e-6 per row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 1)
+    x, res, dy = (torch.randn(rows, 768, device=cuda_device,
+                              generator=gen).to(dtype) for _ in range(3))
+    gamma = torch.randn(768, device=cuda_device, generator=gen)
+    kw = dict(rate=rate, eps=1e-12, seed=5)
+    before = tfl.fused_ln_bwd.launches
+    got = tfl.fused_ln_bwd(x, res, gamma, dy, **kw)
+    torch.cuda.synchronize()
+    assert tfl.fused_ln_bwd.launches == before + 1
+    want = tfl.fused_dropout_add_ln_bwd_plain(x, res, gamma, dy, **kw)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if i >= 2:
+            tol = 1e-6 * rows
+        else:
+            tol = 1e-5 if dtype == torch.float32 else _bf16_tol(w)
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+
+
+def _attn_inputs(device, B, L, heads, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(B, L, heads, tfa.HEAD_DIM, device=device,
+                        generator=gen).to(dtype) for _ in range(4)]
+
+
+ATTN_CASES = ([(tfa.FAMILY_PRETRAIN, v) for v in range(5)]
+              + [(tfa.FAMILY_SEQ2SEQ, v) for v in range(3)])
+
+
+@pytest.mark.parametrize("family,variant", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_match_plain(cuda_device, family, variant, dtype,
+                                       rate):
+    """K1 (o, lse) and K2 (dq, dk, dv) against the plain versions at a
+    ragged L (two full key tiles and a partial one).  f32: o 1e-5, grads
+    1e-4 (summation order over L); bf16: one ulp of the largest value."""
+    B, L, heads, img_block = 3, 150, 2, 22
+    q, k, v, do = _attn_inputs(cuda_device, B, L, heads, dtype, variant + 7)
+    spec = torch.tensor([[variant, t] for t in (5, 60, 200)],
+                        dtype=torch.int32, device=cuda_device)
+    kw = dict(img_block=img_block, l_real=L, family=family, rate=rate,
+              seed=31)
+    before = (tfa.attn_fwd.launches, tfa.attn_bwd.launches)
+    o, lse = tfa.attn_fwd(q, k, v, spec, **kw)
+    grads = tfa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+    torch.cuda.synchronize()
+    assert (tfa.attn_fwd.launches, tfa.attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_o, want_lse = tfa.attn_fwd_plain(q, k, v, spec, **kw)
+    want_grads = tfa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=0,
+                               atol=1e-5 if f32 else _bf16_tol(want_o))
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=1e-4 if f32 else _bf16_tol(w))
+
+
+def test_attention_dropout_mask_is_the_plain_mask(cuda_device):
+    """With q = k = 0 every visible cell of a FULL row gets p = 1/L; with V
+    one-hot over a window of 64 keys, O[r, d] > 0 iff key c0 + d was kept,
+    so the kernel's keep mask reads back bit for bit."""
+    B, L, heads, rate, seed = 2, 150, 3, 0.1, 1234
+    q = torch.zeros(B, L, heads, tfa.HEAD_DIM, device=cuda_device)
+    spec = torch.tensor([[0, L]] * B, dtype=torch.int32, device=cuda_device)
+    mask = tfa.keep_mask(seed, B, heads, L, rate, cuda_device)
+    for c0 in range(0, L, tfa.HEAD_DIM):
+        w = min(tfa.HEAD_DIM, L - c0)
+        v = torch.zeros_like(q)
+        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=cuda_device)[:, None]
+        o, _ = tfa.attn_fwd(q, q, v, spec, img_block=2, l_real=L,
+                            family=tfa.FAMILY_PRETRAIN, rate=rate, seed=seed)
+        got = (o[..., :w] > 0).permute(0, 2, 1, 3)  # [B, heads, r, d]
+        assert torch.equal(got, mask[..., c0:c0 + w])
+
+
+def test_flash_mha_training_step_on_card(cuda_device):
+    """flash_mha forward + backward through autograd launch K1 once and K2
+    once and agree with autograd through the plain forward (f32)."""
+    q, k, v, _ = _attn_inputs(cuda_device, 2, 70, 2, torch.float32, 3)
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    spec = torch.tensor([[2, 20], [1, 40]], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(img_block=10, l_real=70)
+    before = (tfa.attn_fwd.launches, tfa.attn_bwd.launches)
+    out = tfa.flash_mha(*leaves, spec, dropout_rate=0.1, seed=3,
+                        deterministic=False, **kw)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    assert (tfa.attn_fwd.launches, tfa.attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    clones = [t.detach().clone().requires_grad_() for t in leaves]
+    ref, _ = tfa.attn_fwd_plain(*clones, spec, family=tfa.FAMILY_PRETRAIN,
+                                rate=0.1, seed=3, **kw)
+    want = torch.autograd.grad((ref ** 2).sum(), clones)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4)

@@ -96,13 +96,13 @@ def test_plain_dropout_is_the_masked_layer_norm():
 def test_wrapper_routes_cpu_tensors_to_plain_without_counting():
     x, res, gamma, beta = (torch.from_numpy(a)
                            for a in _inputs((2, 5, 64), seed=1))
-    before = tfl.fused_dropout_add_ln.launches
+    before = tfl.fused_ln_fwd.launches
     got = tfl.fused_dropout_add_ln(x, res, gamma, beta, rate=0.2, eps=1e-5,
                                    seed=3)
     want = tfl.fused_dropout_add_ln_plain(x, res, gamma, beta, rate=0.2,
                                           eps=1e-5, seed=3)
     assert torch.equal(got, want)
-    assert tfl.fused_dropout_add_ln.launches == before
+    assert tfl.fused_ln_fwd.launches == before
 
 
 @pytest.mark.parametrize("bad", ["h-not-vector", "h-too-wide", "res-dtype",
@@ -134,3 +134,66 @@ def test_kernel_input_checks(bad):
         return
     with pytest.raises((TypeError, ValueError)):
         tfl._check(x, res, g, b)
+
+
+@pytest.mark.parametrize("shape", [(70, 256), (2, 3, 768)],
+                         ids=["2d", "3d-h768"])
+def test_plain_backward_matches_jax_vjp_rate0(shape):
+    """K4's plain version against jax.vjp of the Pallas kernel's custom
+    VJP (interpret mode), the backward TPU kernel itself."""
+    import jax
+
+    x, res, gamma, beta = _inputs(shape, seed=2)
+    dy = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+
+    def f(x, res, gamma, beta):
+        return jax_fused(x, res, gamma, beta, rate=0.0, eps=1e-12,
+                         seed=jnp.int32(0))
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (x, res, gamma, beta)))
+    want = vjp(jnp.asarray(dy))
+    got = tfl.fused_dropout_add_ln_bwd_plain(
+        torch.from_numpy(x), torch.from_numpy(res), torch.from_numpy(gamma),
+        torch.from_numpy(dy), rate=0.0, eps=1e-12, seed=0)
+    # dgamma/dbeta sum over rows: tolerance scaled by the row count
+    rows = x.size // x.shape[-1]
+    tols = [TOL, TOL, TOL * rows, TOL * rows]
+    for g, w, tol in zip(got, want, tols):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_autograd_runs_the_plain_backward(rate):
+    """fused_dropout_add_ln is differentiable in x, res, gamma and beta, and
+    its backward (the recompute of K4) equals autograd through the plain
+    forward with the same keep mask."""
+    x, res, gamma, beta = (torch.from_numpy(a).requires_grad_()
+                           for a in _inputs((3, 7, 128), seed=6))
+    dy = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (3, 7, 128)).astype(np.float32))
+    kw = dict(rate=rate, eps=1e-5, seed=21)
+    y = tfl.fused_dropout_add_ln(x, res, gamma, beta, **kw)
+    got = torch.autograd.grad(y, (x, res, gamma, beta), dy)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, res, gamma,
+                                                            beta)]
+    want = torch.autograd.grad(
+        tfl.fused_dropout_add_ln_plain(*leaves, **kw), leaves, dy)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    if rate:
+        keep = tfl.keep_mask(21, 21, 128, rate).reshape(3, 7, 128)
+        assert torch.equal(got[0] == 0, ~keep)
+
+
+def test_backward_routes_cpu_tensors_to_plain_without_counting():
+    x, res, gamma, _ = (torch.from_numpy(a)
+                        for a in _inputs((5, 64), seed=8))
+    before = tfl.fused_ln_bwd.launches
+    got = tfl.fused_ln_bwd(x, res, gamma, x, rate=0.2, eps=1e-5, seed=3)
+    want = tfl.fused_dropout_add_ln_bwd_plain(x, res, gamma, x, rate=0.2,
+                                              eps=1e-5, seed=3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert tfl.fused_ln_bwd.launches == before

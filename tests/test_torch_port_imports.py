@@ -22,8 +22,11 @@ def _modules():
 
 def test_modules_import_neither_jax_nor_medvill_tpu():
     names = _modules()
-    assert "medvill_torch.cli.serve_main" in names
-    assert "medvill_torch.ops.fused_ln" in names
+    for name in ("cli.serve_main", "cli.pretrain_main", "ops.fused_ln",
+                 "ops.flash_attention", "ops.dropout", "data.masks",
+                 "data.pretrain", "data.sampling", "models.joint",
+                 "models.cxrbert", "train.optim", "train.pretrain"):
+        assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r} + ['chip_smoke']:\n"
@@ -57,6 +60,11 @@ def test_cuda_entry_points_raise_without_a_card():
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main.build_engine(args, None)
+    from medvill_torch.cli import pretrain_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pretrain_main.main(["--train_dataset", "t.jsonl", "--vocab_file",
+                            "v.txt"])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -1,0 +1,180 @@
+"""Where the time goes in the port's pretraining step on one NVIDIA GPU.
+
+    python tools/torch_pretrain_profile.py [--fused_ln] [--steps 8] \
+        [--table out/torch_pretrain_profile.txt]
+
+The configuration of chip_smoke.py's ``train`` phase: PretrainConfig
+defaults (BERT-base, ResNet-50 random-pixel encoder at 512 px with 180 of
+256 fibers, seq_len 253 so L = 436, BAR, batch 36, accumulation 4, AdamW lr
+1e-5), random weights from seed 0, bf16 compute.  It writes chip_smoke.py's
+synthetic vocabulary and records (288 records over 8 shared 512-px PNGs),
+then:
+
+- loader: the host time per batch of ``BatchLoader`` (4 worker threads,
+  PNG decode, tokenization, masking), alone;
+- step: the host-clock time per micro-step of ``make_train_step`` on one
+  device-resident batch, ``--steps`` micro-steps after two of warmup,
+  ending in a sync;
+- profile: ``--steps`` micro-steps under torch.profiler: device busy time,
+  idle share (1 - busy / traced wall), kernel launches per micro-step, the
+  device time by kind (K1, K2, K3, K4, GEMM, convolution, AdamW,
+  elementwise/reduction, other) and the top kernels.
+
+One JSON line per result; ``--table`` also writes the operator table to
+that file.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from medvill_torch.config import BertConfig, PretrainConfig  # noqa: E402
+from medvill_torch.data.pretrain import (BatchLoader,  # noqa: E402
+                                         CXRPretrainDataset)
+from medvill_torch.data.tokenization import BertTokenizer  # noqa: E402
+from medvill_torch.train import pretrain as pretrain_lib  # noqa: E402
+
+# kernel-name substrings, first match wins
+KINDS = (("K1", ("attn_fwd_kernel",)),
+         ("K2", ("attn_bwd_",)),
+         ("K3", ("fused_ln_fwd_kernel",)),
+         ("K4", ("fused_ln_bwd_kernel",)),
+         ("adamw", ("multi_tensor", "adam")),
+         ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop",
+                          "winograd")),
+         ("gemm", ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")),
+         ("elementwise/reduction", ("elementwise", "reduce", "vectorized",
+                                    "softmax", "norm", "index", "gather",
+                                    "scatter", "copy", "fill", "cat",
+                                    "sort", "where")))
+
+
+def _attr(evt, *names):
+    for n in names:
+        if hasattr(evt, n):
+            return getattr(evt, n)
+    return 0.0
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fused_ln", action="store_true",
+                    help="BertConfig.fused_ln on (K3/K4)")
+    ap.add_argument("--steps", type=int, default=8,
+                    help="micro-steps timed and traced")
+    ap.add_argument("--table", type=str, default=None,
+                    help="file for the full torch.profiler operator table")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    cfg = PretrainConfig(bert=dataclasses.replace(BertConfig(),
+                                                  fused_ln=args.fused_ln))
+    with tempfile.TemporaryDirectory(prefix="medvill_profile_") as d:
+        vocab = os.path.join(d, "vocab.txt")
+        chip_smoke.write_vocab(vocab)
+        data = chip_smoke.write_train_data(d, vocab)
+        tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+        loader = BatchLoader(CXRPretrainDataset(data, tok, cfg, seed=0),
+                             cfg.batch_size, shuffle=True, seed=0,
+                             workers=cfg.num_workers)
+        t0 = time.perf_counter()
+        batches = list(loader)
+        loader_s = time.perf_counter() - t0
+        loader.close()
+    print(json.dumps({"what": "loader", "batches": len(batches),
+                      "batch": cfg.batch_size, "workers": cfg.num_workers,
+                      "ms_per_batch": loader_s / len(batches) * 1e3}),
+          flush=True)
+
+    batch = pretrain_lib.to_device(batches[0], device)
+    state = pretrain_lib.init_state(cfg, seed=0, device=device)
+    step = pretrain_lib.make_train_step(cfg)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / args.steps * 1e3
+    print(json.dumps({"what": "step", "fused_ln": args.fused_ln,
+                      "micro_steps": args.steps, "ms_per_micro_step": step_ms,
+                      "pairs_per_s": cfg.batch_size / step_ms * 1e3,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2 ** 30}), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    dev = [e for e in avgs
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+    def dev_us(e):
+        return _attr(e, "self_device_time_total", "self_cuda_time_total")
+
+    busy_us = sum(dev_us(e) for e in dev)
+    by_kind: dict = {}
+    for e in dev:
+        k = _kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + dev_us(e)
+    launches = sum(e.count for e in avgs
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    top_dev = sorted(dev, key=lambda e: -dev_us(e))[:15]
+    print(json.dumps({
+        "what": "profile", "fused_ln": args.fused_ln,
+        "micro_steps": args.steps, "traced_wall_s": traced,
+        "ms_per_micro_step": traced / args.steps * 1e3,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1 - busy_us / 1e6 / traced,
+        "kernel_launches_per_micro_step": launches / args.steps,
+        "device_ms_per_micro_step_by_kind": {
+            k: v / 1e3 / args.steps for k, v in
+            sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        "top_device_ms_per_micro_step": {
+            e.key[:70]: dev_us(e) / 1e3 / args.steps for e in top_dev}}),
+        flush=True)
+    if args.table:
+        os.makedirs(os.path.dirname(args.table) or ".", exist_ok=True)
+        with open(args.table, "w") as f:
+            key = ("self_device_time_total"
+                   if hasattr(avgs[0], "self_device_time_total")
+                   else "self_cuda_time_total")
+            f.write(avgs.table(sort_by=key, row_limit=80))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

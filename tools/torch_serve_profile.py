@@ -135,7 +135,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wrapper_us = (time.perf_counter() - t0) / n * 1e6
     y = torch.empty_like(x)
-    kern = fused_ln._kernel()
+    kern = fused_ln._kernels()[0]
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = (x.data_ptr(), res.data_ptr(), g.data_ptr(), b.data_ptr(),
             y.data_ptr())
