@@ -100,6 +100,62 @@ def visible(family: int, variant: torch.Tensor, txt_len: torch.Tensor,
     raise ValueError(f"unknown mask family {family}")
 
 
+def tile_skippable(family: int, variant: int, txt_len: int, img_block: int,
+                   l_real: int, L: int, r0: int, c0: int,
+                   tile: int = 64) -> bool:
+    """Whether the attention kernels skip the (query rows [r0, r0+tile),
+    key columns [c0, c0+tile)) pair of one sample: ``visible`` (and ``c <
+    l_real``) holds for none of its cells below L, and every row of the
+    query tile sees some column, so each skipped cell's weight is exactly 0
+    (``Spec::skip`` in ops/csrc/flash_attention.cu, its twin).  A closed
+    form: each region of ``visible`` is a rectangle or the triangle c <= r.
+    """
+    I2, lr = img_block, min(l_real, L)
+    r_lo, r_hi = r0, min(r0 + tile, L) - 1
+    c_lo, c_hi = c0, min(c0 + tile, L, lr) - 1
+    # every row has a visible column: column 0, or I2 for NONCROSS text rows
+    if lr < 1:
+        return False
+    if family == FAMILY_PRETRAIN:
+        rows_see = ((r_hi < I2 or lr > I2)
+                    if variant == int(MaskVariant.NONCROSS) else I2 >= 1)
+    else:
+        rows_see = I2 >= 1 if variant in (1, 2) else txt_len >= 1
+    if not rows_see:
+        return False
+    if c_hi < c_lo:
+        return True
+    img_cols, img_rows, cc = c_lo < I2, r_lo < I2, max(c_lo, I2)
+    if family == FAMILY_PRETRAIN:
+        if variant == int(MaskVariant.NONCROSS):
+            any_vis = (img_rows and img_cols) or (r_hi >= I2 and c_hi >= I2)
+        elif variant in (int(MaskVariant.S2S), int(MaskVariant.BAR)):
+            causal = r_hi >= I2 and cc <= c_hi and cc <= r_hi
+            any_vis = img_cols or causal or (
+                variant == int(MaskVariant.BAR) and img_rows)
+        else:  # FULL, ATTN1D
+            any_vis = c_lo < max(I2, I2 + txt_len)
+    elif variant in (1, 2):  # seq2seq s2s, bar
+        rr_lo, rr_hi = max(r_lo, I2), min(r_hi, txt_len - 1)
+        causal = rr_lo <= rr_hi and cc <= c_hi and cc <= rr_hi
+        any_vis = img_cols or causal or (variant == 2 and img_rows)
+    else:  # seq2seq bi
+        any_vis = c_lo < txt_len
+    return not any_vis
+
+
+def tile_skip_grid(family: int, spec: torch.Tensor, img_block: int,
+                   l_real: int, L: int, tile: int = 64) -> torch.Tensor:
+    """[B, n, n] bool (query tile, key tile), n = ceil(L / tile):
+    ``tile_skippable`` for every pair of each sample of a [B, 2] int spec
+    (variant, txt_len)."""
+    n = -(-L // tile)
+    return torch.tensor([[[tile_skippable(family, variant, txt, img_block,
+                                          l_real, L, i * tile, j * tile, tile)
+                           for j in range(n)] for i in range(n)]
+                         for variant, txt in spec.tolist()], dtype=torch.bool)
+
+
 def dense_mask_from_spec(spec: torch.Tensor,
                          geom: MaskGeometry) -> torch.Tensor:
     """[B, 2] int spec -> [B, L, L] int32 dense mask (1 = visible)."""

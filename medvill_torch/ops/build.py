@@ -2,8 +2,9 @@
 load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``ops/_build/lib<name>-<hash>.so``; the hash covers the source and the
-flags, so an edited kernel is rebuilt at its next use and an unchanged one is
+into ``ops/_build/lib<name>-<hash>.so``, its ``nvcc`` log (ptxas' ``-v``
+report, read by ``ptxas_report``) beside it as ``.log``; the hash covers the
+source and the flags, so an edited kernel is rebuilt at its next use and an unchanged one is
 reused.  ``compile_all`` starts one ``nvcc`` per source at once and waits for
 all of them.  Nothing here runs at import time: the CPU tests import every
 module of the package on a host without ``nvcc``.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,19 +51,49 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """ptxas' ``-v`` lines per entry function: {"<kernel>[<f32|bf16>]":
+    {"registers", "spill_stores", "spill_loads", "static_smem"}} (dynamic
+    shared memory is the launch's and is not in the log)."""
+    report: Dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
+            dtype = "bf16" if "nv_bfloat16" in m.group(1) else "f32"
+            entry = report.setdefault(
+                f"{kernel.group(1) if kernel else m.group(1)}[{dtype}]", {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["static_smem"] = int(m.group(1)) if m else 0
+    return report
+
+
 def compile_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named kernel (all of ``csrc/`` by default) that is not
     built yet, one ``nvcc`` process per source, all started together.
     Returns {name: {"seconds": float, "log": nvcc stderr}}; a kernel already
-    built reports 0 seconds and an empty log.  Raises on any failure."""
+    built (library and log) reports 0 seconds and the log of its build.
+    Raises on any failure."""
     names = kernel_names() if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
     procs = []
     for name in names:
         out = library_path(name)
-        if out.exists():
-            report[name] = {"seconds": 0.0, "log": ""}
+        log = out.with_suffix(".log")
+        if out.exists() and log.exists():
+            report[name] = {"seconds": 0.0, "log": log.read_text()}
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -76,6 +108,7 @@ def compile_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                             f"{stdout}{stderr}")
             continue
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(stderr)
         report[name] = {"seconds": time.perf_counter() - t0, "log": stderr}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))

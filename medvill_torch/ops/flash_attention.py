@@ -19,12 +19,19 @@ n_tokens).
   whose forward is ``attn_fwd`` and backward ``attn_bwd``);
   ``make_attention_fn`` adapts it to the BERT stack's ``attention_fn``
   hook and ignores the additive ``bias``.
+- ``skipped_tiles`` reads back which tile pairs the kernels skipped, for
+  the checks against ``masks.tile_skippable``.
 
 Layout: q, k, v, o are [B, L, heads, D], the layout of the Q/K/V
 projections' ``view``; the kernels read and write it directly.  The TPU
 path pads L to 16/128 multiples and groups heads per block (with the
 ``MEDVILL_ATTN_*`` environment overrides); none of that tuning applies to
-this kernel, which tiles L by 64 and masks the ragged edge itself.
+this kernel, which tiles L by ``TILE`` = 64 and masks the ragged edge
+itself.  In bf16 the kernels run their tile products on the tensor cores
+(bf16 operands, f32 accumulation; P and dS rounded to bf16 between
+products, see ``bf16_tolerances``) and skip every (query tile, key tile)
+pair the spec masks entirely (``masks.tile_skippable``), which changes no
+bit; in f32 they keep f32 CUDA-core products.
 
 Dropout keep mask: ``keep_mask`` below, a pure function of (seed, b, head,
 r, c): kept iff ``fmix32(seed ^ (((b * heads + head) * L + r) * L + c)) >=
@@ -49,6 +56,8 @@ from medvill_torch.ops.fused_ln import _M32, _fmix32, _threshold
 
 NEG = -10000.0
 HEAD_DIM = 64      # the kernel's head dim (kD in the source)
+TILE = 64          # query and key rows per tile (kTile in the source)
+BF16_U = 2.0 ** -8  # unit roundoff of bf16
 _MAX_L = 4096
 
 
@@ -98,14 +107,10 @@ def attn_fwd_plain(q, k, v, spec, *, img_block: int, l_real: int,
     return o.to(q.dtype), lse
 
 
-def attn_bwd_plain(q, k, v, o, do, lse, spec, *, img_block: int,
-                   l_real: int, family: int, rate: float, seed: int):
-    """The plain PyTorch version of K2's recompute backward: (dq, dk, dv)
-    in q's dtype.  P = exp(S - lse); dV = P_drop^T dO; dP = (dO V^T) * keep
-    / (1 - rate); dS = P * (dP - rowsum(dO * O)); dQ = dS K * scale;
-    dK = dS^T Q * scale."""
-    B, L, heads, D = q.shape
-    scale = 1.0 / math.sqrt(D)
+def _bwd_terms(q, k, v, o, do, lse, spec, img_block, l_real, family, rate,
+               seed):
+    """(P_drop, dS), [B, heads, L, L] f32, of the recompute backward."""
+    B, L, heads, _ = q.shape
     p = torch.exp(_scores(q, k, spec, img_block, l_real, family)
                   - lse.unsqueeze(-1))
     dof = do.float()
@@ -116,12 +121,58 @@ def attn_bwd_plain(q, k, v, o, do, lse, spec, *, img_block: int,
         inv = 1.0 / (1.0 - rate)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, dof)
     dvec = (dof * o.float()).sum(-1).transpose(1, 2).unsqueeze(-1)
-    ds = p * (dp - dvec)
+    return p_drop, p * (dp - dvec)
+
+
+def attn_bwd_plain(q, k, v, o, do, lse, spec, *, img_block: int,
+                   l_real: int, family: int, rate: float, seed: int):
+    """The plain PyTorch version of K2's recompute backward: (dq, dk, dv)
+    in q's dtype.  P = exp(S - lse); dV = P_drop^T dO; dP = (dO V^T) * keep
+    / (1 - rate); dS = P * (dP - rowsum(dO * O)); dQ = dS K * scale;
+    dK = dS^T Q * scale."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p_drop, ds = _bwd_terms(q, k, v, o, do, lse, spec, img_block, l_real,
+                            family, rate, seed)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_drop, do.float())
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bf16_tolerances(q, k, v, o, do, lse, spec, plain: dict, *,
+                    img_block: int, l_real: int, family: int, rate: float,
+                    seed: int) -> dict:
+    """Worst-case |kernel - plain version| of the bf16 kernels' o, dq, dk
+    and dv, from where they round, with u = 2^-8 the unit roundoff of bf16
+    (8 significant bits).  ``plain`` holds the plain versions' outputs;
+    (o, lse) are what K2 is given.
+
+    - Both sides round their output to bf16 once: u * max|out| each.
+    - K1 rounds the kept probabilities (relative to the running max; O is
+      divided by the row sum and multiplied by 1 / (1 - rate) in f32 at the
+      end), each term by at most u of itself: u * max over (r, d) of
+      sum_c P_drop[r, c] |v[c, d]|.
+    - K2 rounds P_drop before dV += P_drop^T dO: u * max(P_drop^T |dO|);
+      and dS before dK += dS^T Q and dQ += dS K: u * scale * max(|dS|^T
+      |Q|) and u * scale * max(|dS| |K|).
+
+    S, dP, the exponentials and every sum are f32 on both sides; their
+    differences (summation order, exp2 against exp) are ~2^-20 relative,
+    far inside the slack of a worst case that counts every rounding at its
+    full size and with one sign."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p_drop, ds = _bwd_terms(q, k, v, o, do, lse, spec, img_block, l_real,
+                            family, rate, seed)
+    ds = ds.abs()
+    terms = {
+        "o": torch.einsum("bhqk,bkhd->bqhd", p_drop, v.float().abs()),
+        "dq": torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs()) * scale,
+        "dk": torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs()) * scale,
+        "dv": torch.einsum("bhqk,bqhd->bkhd", p_drop, do.float().abs())}
+    return {n: BF16_U * (t.max().item()
+                         + 2.0 * plain[n].float().abs().max().item())
+            for n, t in terms.items()}
 
 
 @functools.cache
@@ -229,6 +280,46 @@ def attn_bwd(q, k, v, o, do, lse, spec, *, img_block: int, l_real: int,
 
 
 attn_bwd.launches = 0
+
+
+def skipped_tiles(q, k, v, do, spec, *, img_block: int, l_real: int,
+                  family: int) -> dict:
+    """Which (query tile, key tile) pairs ``attn_fwd`` and ``attn_bwd``
+    skipped, read back from their outputs at rate 0: {"fwd", "dq", "dkdv"}
+    -> bool [B, heads, n, n] (query tile, key tile), n = ceil(L / TILE).
+
+    A pair that is computed carries a NaN in its key tile (or, for dK/dV,
+    its query tile) into every row of its output tile, since a NaN score
+    gives a NaN weight whether or not the cell is masked; a skipped pair
+    never loads it.  So with the NaN in key tile j, the query tiles of o
+    (K1) and dq (K2) that stay finite are those skipped against j; with it
+    in query tile i, the finite key tiles of dk and dv.  The plain versions
+    skip nothing."""
+    B, L, heads, _ = q.shape
+    n = -(-L // TILE)
+    kw = dict(img_block=img_block, l_real=l_real, family=family, rate=0.0,
+              seed=0)
+    o, lse = attn_fwd(q, k, v, spec, **kw)
+
+    def finite_tiles(x):  # [B, L, heads, D] -> [B, heads, n]
+        f = x.isfinite().all(-1)
+        f = torch.cat([f, f.new_ones(B, n * TILE - L, heads)], 1)
+        return f.view(B, n, TILE, heads).all(2).transpose(1, 2)
+
+    out = {name: torch.zeros(B, heads, n, n, dtype=torch.bool,
+                             device=q.device) for name in ("fwd", "dq",
+                                                           "dkdv")}
+    for t in range(n):
+        k_nan, q_nan = k.clone(), q.clone()
+        k_nan[:, t * TILE:(t + 1) * TILE] = math.nan
+        q_nan[:, t * TILE:(t + 1) * TILE] = math.nan
+        out["fwd"][..., t] = finite_tiles(attn_fwd(q, k_nan, v, spec,
+                                                   **kw)[0])
+        out["dq"][..., t] = finite_tiles(attn_bwd(q, k_nan, v, o, do, lse,
+                                                  spec, **kw)[0])
+        _, dk, dv = attn_bwd(q_nan, k, v, o, do, lse, spec, **kw)
+        out["dkdv"][:, :, t] = finite_tiles(dk) & finite_tiles(dv)
+    return out
 
 
 class _FlashMHA(torch.autograd.Function):

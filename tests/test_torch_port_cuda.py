@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from medvill_torch.config import BertConfig, ImageEncoderConfig
+from medvill_torch.data import masks as tmasks
 from medvill_torch.models import decoder
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
 from medvill_torch.ops import flash_attention as tfa
@@ -83,8 +84,8 @@ def test_tiny_decode_card_matches_cpu(cuda_device):
 
 
 def _bf16_tol(want: torch.Tensor) -> float:
-    """One bf16 ulp of the largest magnitude: both sides compute in f32
-    from the same inputs and round once."""
+    """One bf16 ulp of the largest magnitude: the LN kernels and their
+    plain versions compute in f32 from the same inputs and round once."""
     return 2.0 ** -7 * want.float().abs().max().item()
 
 
@@ -123,20 +124,10 @@ ATTN_CASES = ([(tfa.FAMILY_PRETRAIN, v) for v in range(5)]
               + [(tfa.FAMILY_SEQ2SEQ, v) for v in range(3)])
 
 
-@pytest.mark.parametrize("family,variant", ATTN_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_attention_kernels_match_plain(cuda_device, family, variant, dtype,
-                                       rate):
-    """K1 (o, lse) and K2 (dq, dk, dv) against the plain versions at a
-    ragged L (two full key tiles and a partial one).  f32: o 1e-5, grads
-    1e-4 (summation order over L); bf16: one ulp of the largest value."""
-    B, L, heads, img_block = 3, 150, 2, 22
-    q, k, v, do = _attn_inputs(cuda_device, B, L, heads, dtype, variant + 7)
-    spec = torch.tensor([[variant, t] for t in (5, 60, 200)],
-                        dtype=torch.int32, device=cuda_device)
-    kw = dict(img_block=img_block, l_real=L, family=family, rate=rate,
-              seed=31)
+def _check_attention(q, k, v, do, spec, kw):
+    """K1 and K2 once each against the plain versions.  f32: o 1e-5, lse
+    and grads 1e-4 (summation order over L); bf16: the worst case of where
+    the kernels round (tfa.bf16_tolerances), lse 1e-4."""
     before = (tfa.attn_fwd.launches, tfa.attn_bwd.launches)
     o, lse = tfa.attn_fwd(q, k, v, spec, **kw)
     grads = tfa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
@@ -144,28 +135,128 @@ def test_attention_kernels_match_plain(cuda_device, family, variant, dtype,
     assert (tfa.attn_fwd.launches, tfa.attn_bwd.launches) == (
         before[0] + 1, before[1] + 1)
     want_o, want_lse = tfa.attn_fwd_plain(q, k, v, spec, **kw)
-    want_grads = tfa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
-    f32 = dtype == torch.float32
+    want = dict(zip(("dq", "dk", "dv"),
+                    tfa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)))
+    if q.dtype == torch.float32:
+        tol = {"o": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+    else:
+        tol = tfa.bf16_tolerances(q, k, v, o, do, lse, spec,
+                                  {"o": want_o, **want}, **kw)
     torch.testing.assert_close(o.float(), want_o.float(), rtol=0,
-                               atol=1e-5 if f32 else _bf16_tol(want_o))
+                               atol=tol["o"])
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
-    for g, w in zip(grads, want_grads):
-        torch.testing.assert_close(g.float(), w.float(), rtol=0,
-                                   atol=1e-4 if f32 else _bf16_tol(w))
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        torch.testing.assert_close(g.float(), want[name].float(), rtol=0,
+                                   atol=tol[name])
 
 
-def test_attention_dropout_mask_is_the_plain_mask(cuda_device):
+@pytest.mark.parametrize("family,variant", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_match_plain(cuda_device, family, variant, dtype,
+                                       rate):
+    """K1 (o, lse) and K2 (dq, dk, dv) against the plain versions at a
+    ragged L (two full key tiles and a partial one)."""
+    B, L, heads, img_block = 3, 150, 2, 22
+    q, k, v, do = _attn_inputs(cuda_device, B, L, heads, dtype, variant + 7)
+    spec = torch.tensor([[variant, t] for t in (5, 60, 200)],
+                        dtype=torch.int32, device=cuda_device)
+    _check_attention(q, k, v, do, spec, dict(
+        img_block=img_block, l_real=L, family=family, rate=rate, seed=31))
+
+
+@pytest.mark.parametrize("family,variant", ATTN_CASES)
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 150, 436])
+@pytest.mark.parametrize("edge", ["inside", "on"])
+def test_bf16_attention_kernels_at_tile_edges(cuda_device, family, variant,
+                                              L, edge):
+    """bf16, rate 0.1: L at and around the 64-row tile, the image block
+    ending inside a tile or on a tile boundary, so the causal text block
+    starts mid-tile or at a tile's first row (and whole pairs skip)."""
+    img_block = (min(22, L) if edge == "inside" else min(64, L))
+    if family == tfa.FAMILY_PRETRAIN:
+        txts = (min(1, L - img_block), L - img_block)
+    else:
+        txts = (min(img_block + 1, L), L)
+    spec = torch.tensor([[variant, t] for t in txts], dtype=torch.int32,
+                        device=cuda_device)
+    q, k, v, do = _attn_inputs(cuda_device, 2, L, 2, torch.bfloat16, L)
+    _check_attention(q, k, v, do, spec, dict(
+        img_block=img_block, l_real=L, family=family, rate=0.1, seed=L))
+
+
+@pytest.mark.parametrize("family,variant", ATTN_CASES)
+@pytest.mark.parametrize("edge", ["inside", "on"])
+@pytest.mark.parametrize("l_real", [200, 130])
+def test_bf16_kernels_skip_the_predicates_tile_pairs(cuda_device, family,
+                                                     variant, edge, l_real):
+    """The (query tile, key tile) pairs that K1 and both K2 tile kernels
+    skip, read back by NaN probes (tfa.skipped_tiles), are exactly the
+    pairs masks.tile_skippable marks: the CUDA Spec::skip against its
+    twin.  L = 200 (four key tiles), the image block ending inside a tile
+    or on its edge, l_real = L or short of the last key tile."""
+    L = 200
+    img_block = 22 if edge == "inside" else 64
+    if family == tfa.FAMILY_PRETRAIN:
+        txts = (1, L - img_block)
+    else:
+        txts = (img_block + 1, L)
+    spec = torch.tensor([[variant, t] for t in txts], dtype=torch.int32,
+                        device=cuda_device)
+    q, k, v, do = _attn_inputs(cuda_device, 2, L, 2, torch.bfloat16, 3)
+    kw = dict(img_block=img_block, l_real=l_real, family=family)
+    want = tmasks.tile_skip_grid(family, spec, img_block, l_real, L,
+                                 tfa.TILE)[:, None].to(cuda_device)
+    for name, got in tfa.skipped_tiles(q, k, v, do, spec, **kw).items():
+        assert torch.equal(got, want.expand_as(got)), name
+
+
+def test_f32_kernels_skip_no_tile_pair(cuda_device):
+    """The f32 kernels keep the first version's code, which computes every
+    pair, also those the predicate marks (BAR, L = 200)."""
+    L, img_block = 200, 64
+    spec = torch.tensor([[2, 1], [2, L - img_block]], dtype=torch.int32,
+                        device=cuda_device)
+    assert tmasks.tile_skip_grid(tfa.FAMILY_PRETRAIN, spec, img_block, L,
+                                 L).any()
+    q, k, v, do = _attn_inputs(cuda_device, 2, L, 2, torch.float32, 4)
+    read = tfa.skipped_tiles(q, k, v, do, spec, img_block=img_block,
+                             l_real=L, family=tfa.FAMILY_PRETRAIN)
+    assert not any(got.any() for got in read.values())
+
+
+def test_bf16_attention_backward_is_deterministic(cuda_device):
+    """K2 has one writer per output element: two calls agree bit for
+    bit."""
+    B, L, heads = 4, 436, 3
+    q, k, v, do = _attn_inputs(cuda_device, B, L, heads, torch.bfloat16, 5)
+    spec = torch.tensor([[2, t] for t in (1, 80, 200, 254)],
+                        dtype=torch.int32, device=cuda_device)
+    kw = dict(img_block=182, l_real=L, family=tfa.FAMILY_PRETRAIN, rate=0.1,
+              seed=8)
+    o, lse = tfa.attn_fwd(q, k, v, spec, **kw)
+    first = tfa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+    second = tfa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_dropout_mask_is_the_plain_mask(cuda_device, dtype):
     """With q = k = 0 every visible cell of a FULL row gets p = 1/L; with V
     one-hot over a window of 64 keys, O[r, d] > 0 iff key c0 + d was kept,
     so the kernel's keep mask reads back bit for bit."""
     B, L, heads, rate, seed = 2, 150, 3, 0.1, 1234
-    q = torch.zeros(B, L, heads, tfa.HEAD_DIM, device=cuda_device)
+    q = torch.zeros(B, L, heads, tfa.HEAD_DIM, device=cuda_device,
+                    dtype=dtype)
     spec = torch.tensor([[0, L]] * B, dtype=torch.int32, device=cuda_device)
     mask = tfa.keep_mask(seed, B, heads, L, rate, cuda_device)
     for c0 in range(0, L, tfa.HEAD_DIM):
         w = min(tfa.HEAD_DIM, L - c0)
         v = torch.zeros_like(q)
-        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=cuda_device)[:, None]
+        v[:, c0:c0 + w, :, :w] = torch.eye(w, device=cuda_device,
+                                           dtype=dtype)[:, None]
         o, _ = tfa.attn_fwd(q, q, v, spec, img_block=2, l_real=L,
                             family=tfa.FAMILY_PRETRAIN, rate=rate, seed=seed)
         got = (o[..., :w] > 0).permute(0, 2, 1, 3)  # [B, heads, r, d]

@@ -138,6 +138,117 @@ def test_plain_forward_equals_dense_bias_attention():
     torch.testing.assert_close(got, want, rtol=FWD_TOL, atol=FWD_TOL)
 
 
+SKIP_CASES = ([(tfa.FAMILY_PRETRAIN, int(v)) for v in MaskVariant]
+              + [(tfa.FAMILY_SEQ2SEQ, m) for m in range(3)])
+SKIP_IDS = [f"pretrain-{v.name}" for v in MaskVariant] + [
+    f"seq2seq-{m}" for m in ("bi", "s2s", "bar")]
+
+
+@pytest.mark.parametrize("L", [37, 64, 65, 436, 512])
+@pytest.mark.parametrize("family,variant", SKIP_CASES, ids=SKIP_IDS)
+def test_tile_skip_predicate_matches_dense_mask(family, variant, L):
+    """masks.tile_skippable against visible() over every (query tile, key
+    tile) pair at the kernel's tile size: a pair it marks is masked in
+    every cell and each of its rows sees some column (so a skipped cell
+    weighs exactly 0), and every such pair is marked (exact for
+    img_block >= 1)."""
+    T = tfa.TILE
+    idx = torch.arange(L)
+    r, c = idx.view(L, 1), idx.view(1, L)
+    for I2 in sorted({1, 22, 64, min(182, L - 1)}):
+        if family == tfa.FAMILY_PRETRAIN:  # txt_len: text rows valid
+            txts = {0, 1, T - I2, T - I2 + 1, L - I2 - 1, L - I2}
+        else:  # n_tokens
+            txts = {0, 1, I2, I2 + 1, T, T + 1, L}
+        for txt in sorted(t for t in txts if t >= 0):
+            for l_real in (L, max(1, L - 40)):
+                vis = tmasks.visible(family, torch.tensor(variant),
+                                     torch.tensor(txt), r, c, I2) & (c < l_real)
+                for r0 in range(0, L, T):
+                    rows = vis[r0:r0 + T]
+                    rows_see = bool(rows.any(1).all())
+                    for c0 in range(0, L, T):
+                        masked = not bool(rows[:, c0:c0 + T].any())
+                        got = tmasks.tile_skippable(family, variant, txt, I2,
+                                                    l_real, L, r0, c0, T)
+                        assert got == (masked and rows_see), (
+                            I2, txt, l_real, r0, c0)
+
+
+def test_tile_skip_pairs_at_the_training_shape():
+    """BAR, L = 436, img_block 182, 64-row tiles: exactly the 6 of 49 pairs
+    above the causal text diagonal, whatever txt_len."""
+    L, I2, T = 436, 182, tfa.TILE
+    for txt in (1, 100, L - I2):
+        got = [(r0 // T, c0 // T) for r0 in range(0, L, T)
+               for c0 in range(0, L, T)
+               if tmasks.tile_skippable(tfa.FAMILY_PRETRAIN,
+                                        int(MaskVariant.BAR), txt, I2, L, L,
+                                        r0, c0, T)]
+        assert got == [(3, 4), (3, 5), (3, 6), (4, 5), (4, 6), (5, 6)]
+
+
+def test_tile_skip_grid_is_the_predicate_per_pair():
+    """masks.tile_skip_grid holds tile_skippable for every (sample, query
+    tile, key tile): the 6 BAR pairs at the training shape, none for
+    FULL."""
+    L, I2, T = 436, 182, tfa.TILE
+    spec = torch.tensor([[int(MaskVariant.BAR), 100],
+                         [int(MaskVariant.FULL), L - I2]])
+    grid = tmasks.tile_skip_grid(tfa.FAMILY_PRETRAIN, spec, I2, L, L, T)
+    assert grid.shape == (2, 7, 7) and grid.dtype == torch.bool
+    assert [tuple(p) for p in grid[0].nonzero().tolist()] == [
+        (3, 4), (3, 5), (3, 6), (4, 5), (4, 6), (5, 6)]
+    assert not grid[1].any()
+
+
+def test_skipped_tiles_reads_no_skip_from_the_plain_versions():
+    """On the CPU skipped_tiles runs the plain versions, which compute every
+    pair, so no pair reads as skipped, though the predicate marks some
+    (BAR, L = 150, image block 64)."""
+    rng = np.random.default_rng(4)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 150, 2, tfa.HEAD_DIM)).astype(np.float32)) for _ in range(4))
+    spec = torch.tensor([[2, 1], [2, 86]], dtype=torch.int32)
+    assert tmasks.tile_skip_grid(tfa.FAMILY_PRETRAIN, spec, 64, 150,
+                                 150).any()
+    read = tfa.skipped_tiles(q, k, v, do, spec, img_block=64, l_real=150,
+                             family=tfa.FAMILY_PRETRAIN)
+    assert sorted(read) == ["dkdv", "dq", "fwd"]
+    for got in read.values():
+        assert got.shape == (2, 2, 3, 3) and not got.any()
+
+
+def test_bf16_tolerances_bound_a_bf16_rounding_of_p():
+    """bf16_tolerances bounds what rounding P_drop and dS to bf16 between
+    products does: the plain math with that rounding added stays within
+    it (f32 inputs exactly representable in bf16, rate 0.1)."""
+    rng = np.random.default_rng(12)
+    shape = (2, 70, 2, tfa.HEAD_DIM)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16().float() for _ in range(4))
+    spec = torch.tensor([[2, 20], [1, 40]], dtype=torch.int32)
+    kw = dict(img_block=10, l_real=70, family=tfa.FAMILY_PRETRAIN, rate=0.1,
+              seed=3)
+    o, lse = tfa.attn_fwd_plain(q, k, v, spec, **kw)
+    dq, dk, dv = tfa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
+    plain = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    tol = tfa.bf16_tolerances(q, k, v, o, do, lse, spec, plain, **kw)
+    p_drop, ds = tfa._bwd_terms(q, k, v, o, do, lse, spec, 10, 70,
+                                tfa.FAMILY_PRETRAIN, 0.1, 3)
+    p_drop, ds = p_drop.bfloat16().float(), ds.bfloat16().float()
+    scale = 1.0 / np.sqrt(tfa.HEAD_DIM)
+    rounded = {
+        "o": torch.einsum("bhqk,bkhd->bqhd", p_drop, v),
+        "dq": torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+        "dk": torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+        "dv": torch.einsum("bhqk,bqhd->bkhd", p_drop, do)}
+    for name, got in rounded.items():
+        err = (got.bfloat16().float() - plain[name].bfloat16().float()
+               ).abs().max().item()
+        assert 0 < err <= tol[name], (name, err, tol[name])
+
+
 def _fmix32_py(h: int) -> int:
     m = 0xFFFFFFFF
     h ^= h >> 16
@@ -228,3 +339,33 @@ def test_mha_reference_dropout_uses_the_generator():
                        t_mha(q, k, v, None))
     with pytest.raises(ValueError):
         t_mha(q, k, v, None, **kw)
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__2aacc652_18_flash\
+_attention_cu_ec2ed44718attn_fwd_tc_kernelEPK13__nv_bfloat16S2_S2_PKiPS0_PfNS\
+_4ArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__2aacc652_18_flash_at
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__2aacc652_18_flash\
+_attention_cu_ec2ed44718attn_bwd_dq_kernelEPKfS1_S1_S1_S1_S1_PKiPfNS_4ArgsE' \
+for 'sm_90a'
+    8 bytes stack frame, 8 bytes spill stores, 160 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 8 bytes cumulative stack \
+size, 32768 bytes smem
+"""
+
+
+def test_ptxas_report_reads_each_kernel():
+    """build.ptxas_report: registers, spills and static shared memory per
+    entry function, named by kernel and element type."""
+    from medvill_torch.ops import build
+
+    assert build.ptxas_report(PTXAS_LOG) == {
+        "attn_fwd_tc_kernel[bf16]": {"spill_stores": 0, "spill_loads": 0,
+                                     "registers": 128, "static_smem": 0},
+        "attn_bwd_dq_kernel[f32]": {"spill_stores": 8, "spill_loads": 160,
+                                    "registers": 168, "static_smem": 32768}}
+    assert build.ptxas_report("") == {}

@@ -46,7 +46,7 @@ from medvill_torch.data.tokenization import BertTokenizer  # noqa: E402
 from medvill_torch.train import pretrain as pretrain_lib  # noqa: E402
 
 # kernel-name substrings, first match wins
-KINDS = (("K1", ("attn_fwd_kernel",)),
+KINDS = (("K1", ("attn_fwd_",)),
          ("K2", ("attn_bwd_",)),
          ("K3", ("fused_ln_fwd_kernel",)),
          ("K4", ("fused_ln_bwd_kernel",)),
