@@ -6,7 +6,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 1. build: every kernel under medvill_torch/ops/csrc/ with nvcc (one process
    per source, all at once), with ptxas' registers and spills per kernel
-   (none in the bf16 attention kernels).
+   (none in the bf16 attention kernels and in any K4 instantiation).
 2. kernel: the fused dropout+residual+LayerNorm kernel against its plain
    PyTorch version at the serve path's shapes (prefill R = 8*258, decode
    window R = 8*2, H = 768) in f32 (max abs err <= 1e-5) and bf16 (<= one
@@ -51,9 +51,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 6. kernel-ln-bwd: the fused-LN backward K4 against its plain version and
    against autograd through the plain forward, and K3 with dropout 0.1,
    at the training shape R = 36 * 436 = 15696, H = 768, f32 and bf16,
-   rate 0 and 0.1; device times from CUDA graphs beside the bound and the
-   library's (autograd through F.layer_norm(x + res) for K4,
-   F.layer_norm(x + res) for K3), and eager per-call times.
+   rate 0 and 0.1; dx zero where the forward dropped x; two K4 calls
+   bit-identical; K4's registers (ptxas), blocks per SM, warps and grid;
+   device times from CUDA graphs beside the bound and the library's
+   (autograd through F.layer_norm(x + res) for K4, F.layer_norm(x + res)
+   for K3), and eager per-call times.  Then K4 at its grid's edges, rate
+   0.1: 1 and 15697 rows at H 768 bf16, 15697 at H 1024 bf16, 1 and 15697
+   at H 32 f32.
 7. train: python -m medvill_torch.cli.pretrain_main's entry point at the
    full configuration (BERT-base, ResNet-50 at 512 px, 180 random-pixel
    embeds, seq_len 253 so L = 436, BAR, batch 36, accumulation 4, AdamW lr
@@ -126,6 +130,8 @@ HEADS, HEAD_DIM = 12, 64
 FT_B, FT_L, FT_IMG_BLOCK = 4, 512, 258   # a finetune shape (seq2seq family)
 TRAIN_RECORDS, TRAIN_IMAGES = 288, 8
 MICRO_STEPS = TRAIN_RECORDS // PRE_B
+# the K4 instantiation of the training call (bf16, 3 chunks a lane at H 768)
+K4_MAIN = "fused_ln_bwd_kernel<3>[bf16]"
 
 
 def emit(obj) -> None:
@@ -218,9 +224,10 @@ def read_counts() -> dict:
             "K4": fused_ln.fused_ln_bwd.launches}
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     """Builds both sources; ptxas' registers and spills per kernel (none in
-    the bf16 attention kernels)."""
+    the bf16 attention kernels and in any K4 instantiation).  Returns the
+    ptxas report."""
     t0 = time.perf_counter()
     report = build.compile_all()
     seconds = time.perf_counter() - t0
@@ -229,11 +236,16 @@ def phase_build() -> None:
           if "_tc_" in n}
     check(len(tc) == 3, f"ptxas report lacks the bf16 attention kernels: "
                         f"{sorted(ptxas['flash_attention'])}")
-    for n, e in tc.items():
+    k4 = {n: e for n, e in ptxas["fused_ln"].items()
+          if n.startswith("fused_ln_bwd_kernel")}
+    check(K4_MAIN in k4, f"ptxas report lacks {K4_MAIN}: "
+                         f"{sorted(ptxas['fused_ln'])}")
+    for n, e in {**tc, **k4}.items():
         check(e["spill_stores"] == e["spill_loads"] == 0, f"{n} spills: {e}")
     emit({"phase": "build", "seconds": seconds,
           "kernels": {n: r["seconds"] for n, r in report.items()},
           "ptxas": ptxas})
+    return ptxas
 
 
 def phase_kernel(device) -> dict:
@@ -733,52 +745,83 @@ def _attn_yardstick(device, gen) -> dict:
     return errs
 
 
-def phase_kernel_ln_bwd(device) -> dict:
-    """K4 (and K3 at dropout 0.1) at the training shape; returns the
-    kernels-line entries (bf16, dropout 0.1)."""
+def _k4_errs(x, res, gamma, beta, dy, kw: dict, what: str) -> dict:
+    """K4 once against its plain version and against autograd through the
+    plain forward: dx, dres f32 1e-5 (1e-4 against autograd), bf16 one ulp;
+    dgamma/dbeta sum over the rows in another order, 1e-6 per row and at
+    least 16 rows' worth (one row's dy * xhat reaches ~16, where the two
+    sides' rstd, 1/sqrtf against rsqrt, differ by a few f32 ulps).  dx is
+    zero where the forward dropped x."""
+    rows = x.numel() // x.shape[-1]
+    f32 = x.dtype == torch.float32
+    got = fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
+    torch.cuda.synchronize()
+    want = fused_ln.fused_dropout_add_ln_bwd_plain(x, res, gamma, dy, **kw)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, res, gamma, beta)]
+    auto = torch.autograd.grad(
+        fused_ln.fused_dropout_add_ln_plain(*leaves, **kw), leaves, dy)
+    errs = {}
+    for i, name in enumerate(("dx", "dres", "dgamma", "dbeta")):
+        tol = (1e-6 * max(rows, 16) if i >= 2 else
+               1e-5 if f32 else bf16_tol(want[i]))
+        errs[name] = max_err(got[i], want[i], tol, f"K4 {name} {what}")
+        errs[name + "_vs_autograd"] = max_err(
+            got[i], auto[i], tol if i >= 2 or not f32 else 1e-4,
+            f"K4 {name} vs autograd {what}")
+    if kw["rate"] > 0:
+        keep = fused_ln.keep_mask(kw["seed"], rows, x.shape[-1], kw["rate"],
+                                  x.device)
+        check(bool((got[0][~keep] == 0).all()),
+              f"K4 dx is not zero where x was dropped ({what})")
+    return errs
+
+
+def _ln_inputs(device, gen, rows: int, h: int, dtype) -> tuple:
+    x, res, dy = (torch.randn(rows, h, device=device, generator=gen).to(dtype)
+                  for _ in range(3))
+    gamma, beta = (torch.randn(h, device=device, generator=gen)
+                   for _ in range(2))
+    return x, res, gamma, beta, dy
+
+
+def phase_kernel_ln_bwd(device, ptxas: dict) -> dict:
+    """K4 (and K3 at dropout 0.1) at the training shape; K4 also at the
+    edges of its persistent grid.  Returns the kernels-line entries (bf16,
+    dropout 0.1)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     rows = PRE_B * PRE_L
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         f32 = dtype == torch.float32
         for rate in (0.0, 0.1):
-            x, res, dy = (torch.randn(rows, H, device=device,
-                                      generator=gen).to(dtype)
-                          for _ in range(3))
-            gamma, beta = (torch.randn(H, device=device, generator=gen)
-                           for _ in range(2))
+            x, res, gamma, beta, dy = _ln_inputs(device, gen, rows, H, dtype)
             kw = dict(rate=rate, eps=1e-12, seed=77)
-            got = fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
-            y = fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw)
-            torch.cuda.synchronize()
-            want = fused_ln.fused_dropout_add_ln_bwd_plain(x, res, gamma, dy,
-                                                           **kw)
-            leaves = [t.detach().clone().requires_grad_()
-                      for t in (x, res, gamma, beta)]
-            auto = torch.autograd.grad(
-                fused_ln.fused_dropout_add_ln_plain(*leaves, **kw), leaves,
-                dy)
             what = f"{dtype} rate {rate}"
-            errs = {}
-            for i, name in enumerate(("dx", "dres", "dgamma", "dbeta")):
-                # dgamma/dbeta sum over the rows in another order
-                tol = (1e-6 * rows if i >= 2 else
-                       1e-5 if f32 else bf16_tol(want[i]))
-                errs[name] = max_err(got[i], want[i], tol, f"K4 {name} {what}")
-                errs[name + "_vs_autograd"] = max_err(
-                    got[i], auto[i], tol if i >= 2 or not f32 else 1e-4,
-                    f"K4 {name} vs autograd {what}")
+            errs = _k4_errs(x, res, gamma, beta, dy, kw, what)
+            y = fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw)
             y_want = fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta,
                                                          **kw)
             errs["k3_y"] = max_err(y, y_want, 1e-5 if f32 else
                                    bf16_tol(y_want), f"K3 {what}")
-            if rate > 0:  # dx is zero where the forward dropped x
-                keep = fused_ln.keep_mask(77, rows, H, rate, device)
-                check(bool((got[0][~keep] == 0).all()),
-                      f"K4 dx is not zero where x was dropped ({what})")
             rec = {"phase": "kernel-ln-bwd", "rows": rows, "h": H,
                    "dtype": str(dtype)[6:], "rate": rate, "max_abs_err": errs}
             if dtype == torch.bfloat16 and rate > 0:
+                # dgamma/dbeta are summed in a fixed order: two calls agree
+                # bit for bit
+                first, second = (fused_ln.fused_ln_bwd(x, res, gamma, dy,
+                                                       **kw)
+                                 for _ in range(2))
+                check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                      "K4 differs between two calls")
+                del first, second
+                per_sm, warps, sms = fused_ln.bwd_residency(device.index, H,
+                                                            True)
+                k4_build = {"registers": ptxas["fused_ln"][K4_MAIN][
+                    "registers"], "blocks_per_sm": per_sm,
+                    "warps_per_block": warps, "sms": sms,
+                    "grid": fused_ln.bwd_grid(device.index, H, True, rows)}
+
                 def k4():
                     fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
 
@@ -825,7 +868,8 @@ def phase_kernel_ln_bwd(device) -> dict:
                 k3_bound, k3_by = bound(3 * rows * H * 2 + 2 * H * 4,
                                         10 * rows * H, dtype)
                 rec.update(t, k4_bound_ms=k4_bound, k4_bound_by=k4_by,
-                           k3_bound_ms=k3_bound, k3_bound_by=k3_by)
+                           k3_bound_ms=k3_bound, k3_bound_by=k3_by,
+                           k4_deterministic=True, k4=k4_build)
                 out = {"K3": {"max_abs_err": errs["k3_y"], "ms": t["k3_ms"],
                               "plain_ms": t["k3_plain_ms"],
                               "bound_ms": k3_bound, "bound_by": k3_by,
@@ -834,8 +878,19 @@ def phase_kernel_ln_bwd(device) -> dict:
                               "ms": t["k4_ms"], "plain_ms": t["k4_plain_ms"],
                               "bound_ms": k4_bound, "bound_by": k4_by,
                               "library_ms": t["k4_library_ms"],
-                              "library_eager_ms": t["k4_library_eager_ms"]}}
+                              "library_eager_ms": t["k4_library_eager_ms"],
+                              **k4_build}}
             emit(rec)
+    # K4's grid edges: one row, a row count no block share divides, the
+    # widest bf16 row and the f32 test width
+    edges = {}
+    for n, h, dtype in ((1, H, torch.bfloat16), (rows + 1, H, torch.bfloat16),
+                        (rows + 1, 1024, torch.bfloat16),
+                        (1, 32, torch.float32), (rows + 1, 32, torch.float32)):
+        what = f"{n}x{h} {str(dtype)[6:]}"
+        edges[what] = _k4_errs(*_ln_inputs(device, gen, n, h, dtype),
+                               dict(rate=0.1, eps=1e-12, seed=78), what)
+    emit({"phase": "kernel-ln-bwd", "rate": 0.1, "edges": edges})
     return out
 
 
@@ -1106,10 +1161,10 @@ def main() -> int:
     emit({"phase": "env", "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
-    phase_build()
+    ptxas = phase_build()
     entry = phase_kernel(device)
     entries = phase_kernel_attn(device)
-    entries.update(phase_kernel_ln_bwd(device))
+    entries.update(phase_kernel_ln_bwd(device, ptxas))
     with tempfile.TemporaryDirectory(prefix="medvill_smoke_") as d:
         argv = _write_fixture(d)
         reset_counts()

@@ -54,7 +54,9 @@ def library_path(name: str) -> Path:
 def ptxas_report(log: str) -> Dict[str, dict]:
     """ptxas' ``-v`` lines per entry function: {"<kernel>[<f32|bf16>]":
     {"registers", "spill_stores", "spill_loads", "static_smem"}} (dynamic
-    shared memory is the launch's and is not in the log)."""
+    shared memory is the launch's and is not in the log).  A kernel with
+    integer template arguments is named with them, as
+    ``"fused_ln_bwd_kernel<3>[bf16]"``."""
     report: Dict[str, dict] = {}
     entry = None
     for line in log.splitlines():
@@ -62,8 +64,11 @@ def ptxas_report(log: str) -> Dict[str, dict]:
         if m:
             kernel = re.search(r"\d([a-z][a-z_]*_kernel)", m.group(1))
             dtype = "bf16" if "nv_bfloat16" in m.group(1) else "f32"
-            entry = report.setdefault(
-                f"{kernel.group(1) if kernel else m.group(1)}[{dtype}]", {})
+            ints = re.findall(r"Li(\d+)E", m.group(1))
+            name = kernel.group(1) if kernel else m.group(1)
+            if ints:
+                name += f"<{','.join(ints)}>"
+            entry = report.setdefault(f"{name}[{dtype}]", {})
             continue
         if entry is None:
             continue

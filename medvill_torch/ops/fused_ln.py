@@ -114,10 +114,12 @@ def _kernels():
     lib = build.library("fused_ln")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     fwd, bwd = lib.medvill_fused_ln_fwd, lib.medvill_fused_ln_bwd
+    occupancy = lib.medvill_fused_ln_bwd_occupancy
     fwd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, f, f, p]
-    bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, u, u, f, f, p]
-    fwd.restype = bwd.restype = i
-    return fwd, bwd
+    bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, f, f, p]
+    occupancy.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    fwd.restype = bwd.restype = occupancy.restype = i
+    return fwd, bwd, occupancy
 
 
 def _check(x, res, gamma, beta) -> None:
@@ -170,14 +172,48 @@ def fused_ln_fwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
 
 fused_ln_fwd.launches = 0
 
-_BWD_ROWS_PER_BLOCK = 64  # kBwdRowsPerBlock in csrc/fused_ln.cu
+@functools.cache
+def bwd_residency(device_index: int, h: int, bf16: bool) -> tuple:
+    """(resident K4 blocks per SM, warps per block, SMs) at width ``h`` on
+    CUDA device ``device_index``, from CUDA's occupancy calculator.  K4's
+    persistent grid is at most blocks per SM x SMs, and a block takes one
+    row per warp at a time."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device_index):
+        err = _kernels()[2](h, int(bf16), out)
+    if err or out[0] < 1:
+        raise RuntimeError(f"fused_ln backward occupancy query failed: CUDA "
+                           f"error {err}, {out[0]} blocks per SM")
+    return tuple(out)
+
+
+def bwd_grid(device_index: int, h: int, bf16: bool, rows: int) -> int:
+    """K4's blocks for ``rows`` rows: the resident blocks, or fewer where
+    the rows do not give each warp one."""
+    per_sm, warps, sms = bwd_residency(device_index, h, bf16)
+    return min(per_sm * sms, -(-rows // warps))
+
+
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed uint32 tickets for K4's sum over blocks, one
+    buffer per (device, stream).  The kernel leaves them at zero, so a buffer
+    serves every later call on its stream, replays of a CUDA graph that
+    captured a call included; K4 calls on one stream never overlap."""
+    buf = _tickets.get((device.index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _tickets[(device.index, stream)] = buf
+    return buf
 
 
 def fused_ln_bwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
                  dy: torch.Tensor, *, rate: float, eps: float, seed: int):
     """The backward, (dx, dres, dgamma, dbeta): the plain version for CPU
-    tensors, K4 for CUDA ones.  K4 writes one f32 partial row of dgamma and
-    dbeta per block of 64 rows; they are summed here."""
+    tensors, K4 for CUDA ones.  K4 is one launch, dgamma and dbeta included,
+    on a persistent grid (``bwd_grid``)."""
     if x.device.type == "cpu":
         return fused_dropout_add_ln_bwd_plain(x, res, gamma, dy, rate=rate,
                                               eps=eps, seed=seed)
@@ -191,23 +227,29 @@ def fused_ln_bwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
     thresh = _threshold(rate)
     h = x.shape[-1]
     rows = x.numel() // h
-    n_blocks = -(-rows // _BWD_ROWS_PER_BLOCK)
+    bf16 = x.dtype == torch.bfloat16
     dx, dres = torch.empty_like(x), torch.empty_like(res)
-    part = torch.empty(2, max(n_blocks, 1), h, device=x.device,
-                       dtype=torch.float32)
+    if rows == 0:
+        dgamma, dbeta = torch.zeros(2, h, device=x.device)
+        return dx, dres, dgamma, dbeta
+    n_blocks = bwd_grid(x.device.index, h, bf16, rows)
+    dgb = torch.empty(2, h, device=x.device, dtype=torch.float32)
+    scratch = torch.empty(2 * n_blocks, 2 * h, device=x.device,
+                          dtype=torch.float32)
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        tickets = _ticket_buffer(x.device, stream, n_blocks + 1)
         err = _kernels()[1](
             x.data_ptr(), res.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
-            dx.data_ptr(), dres.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), rows, h, int(x.dtype == torch.bfloat16),
-            int(rate > 0.0), int(seed) & _M32, thresh, 1.0 / (1.0 - rate),
-            eps, torch.cuda.current_stream(x.device).cuda_stream)
+            dx.data_ptr(), dres.data_ptr(), dgb.data_ptr(),
+            scratch.data_ptr(), tickets.data_ptr(), rows, h, n_blocks,
+            int(bf16), int(rate > 0.0), int(seed) & _M32, thresh,
+            1.0 / (1.0 - rate), eps, stream)
     if err:
         raise RuntimeError(f"fused_ln backward kernel launch failed: CUDA "
                            f"error {err}")
     fused_ln_bwd.launches += 1
-    dgamma, dbeta = part[:, :n_blocks].sum(1)
-    return dx, dres, dgamma, dbeta
+    return dx, dres, dgb[0], dgb[1]
 
 
 fused_ln_bwd.launches = 0

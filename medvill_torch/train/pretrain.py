@@ -50,7 +50,7 @@ def build_model(cfg: PretrainConfig) -> CXRBERT:
 
 
 def init_state(cfg: PretrainConfig, seed: Optional[int] = None,
-               device="cpu") -> TrainState:
+               device="cuda") -> TrainState:
     """A model with random weights from ``seed`` (``cfg.seed`` by default)
     on ``device`` and its optimizer: AdamW over the trainable parameters
     (the frozen trunk excluded), accumulated over

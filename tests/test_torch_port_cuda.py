@@ -89,29 +89,94 @@ def _bf16_tol(want: torch.Tensor) -> float:
     return 2.0 ** -7 * want.float().abs().max().item()
 
 
-@pytest.mark.parametrize("rows", [16, 2064])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_ln_backward_kernel_matches_plain(cuda_device, rows, dtype, rate):
-    """dx, dres: f32 1e-5 (summation order), bf16 one ulp; dgamma/dbeta sum
-    over rows in another order: 1e-6 per row."""
-    gen = torch.Generator(device=cuda_device).manual_seed(rows + 1)
-    x, res, dy = (torch.randn(rows, 768, device=cuda_device,
+def _ln_bwd_inputs(device, rows, h, dtype, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x, res, dy = (torch.randn(rows, h, device=device,
                               generator=gen).to(dtype) for _ in range(3))
-    gamma = torch.randn(768, device=cuda_device, generator=gen)
-    kw = dict(rate=rate, eps=1e-12, seed=5)
+    gamma, beta = (torch.randn(h, device=device, generator=gen)
+                   for _ in range(2))
+    return x, res, gamma, beta, dy
+
+
+def _check_ln_backward(x, res, gamma, beta, dy, kw):
+    """K4 once against its plain version and against autograd through the
+    plain forward.  dx, dres: f32 1e-5 (1e-4 against autograd), bf16 one
+    ulp; dgamma/dbeta sum over rows in another order: 1e-6 per row and at
+    least 16 rows' worth (one row's dy * xhat reaches ~16, where the two
+    sides' rstd, 1/sqrtf against rsqrt, differ by a few f32 ulps).  dx is
+    zero where the forward dropped x."""
+    rows, h = x.shape
     before = tfl.fused_ln_bwd.launches
     got = tfl.fused_ln_bwd(x, res, gamma, dy, **kw)
     torch.cuda.synchronize()
     assert tfl.fused_ln_bwd.launches == before + 1
     want = tfl.fused_dropout_add_ln_bwd_plain(x, res, gamma, dy, **kw)
-    for i, (g, w) in enumerate(zip(got, want)):
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, res, gamma, beta)]
+    auto = torch.autograd.grad(
+        tfl.fused_dropout_add_ln_plain(*leaves, **kw), leaves, dy)
+    f32 = x.dtype == torch.float32
+    for i, (g, w, a) in enumerate(zip(got, want, auto)):
         assert g.dtype == w.dtype and g.shape == w.shape
         if i >= 2:
-            tol = 1e-6 * rows
+            tol = tol_auto = 1e-6 * max(rows, 16)
         else:
-            tol = 1e-5 if dtype == torch.float32 else _bf16_tol(w)
+            tol = 1e-5 if f32 else _bf16_tol(w)
+            tol_auto = 1e-4 if f32 else tol
         torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol)
+        torch.testing.assert_close(g.float(), a.float(), rtol=0,
+                                   atol=tol_auto)
+    if kw["rate"] > 0:
+        keep = tfl.keep_mask(kw["seed"], rows, h, kw["rate"], x.device)
+        assert bool((got[0][~keep] == 0).all())
+
+
+@pytest.mark.parametrize("rows", [1, 16, 2064, 15696, 15697])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_ln_backward_kernel_matches_plain(cuda_device, rows, dtype, rate):
+    """H = 768; rows from one to the training shape's 15696 and one more,
+    which no block's share of K4's persistent grid divides."""
+    _check_ln_backward(*_ln_bwd_inputs(cuda_device, rows, 768, dtype,
+                                       rows + 1),
+                       dict(rate=rate, eps=1e-12, seed=5))
+
+
+@pytest.mark.parametrize("rows", [1, 16, 15697])
+@pytest.mark.parametrize("h,dtype", [(32, torch.float32),
+                                     (1024, torch.float32),
+                                     (1024, torch.bfloat16),
+                                     (256, torch.bfloat16)])
+def test_ln_backward_kernel_at_other_widths(cuda_device, rows, h, dtype):
+    """K4's other instantiations (chunks a lane holds): the f32 test width
+    32, the widest row 1024, and 256 (one chunk a lane in bf16); rate
+    0.1."""
+    _check_ln_backward(*_ln_bwd_inputs(cuda_device, rows, h, dtype, h + rows),
+                       dict(rate=0.1, eps=1e-12, seed=6))
+
+
+def test_ln_backward_kernel_is_deterministic(cuda_device):
+    """dgamma/dbeta are summed over K4's blocks in a fixed order, with no
+    floating-point atomics: two calls agree bit for bit, and so do calls
+    replayed from a CUDA graph (its tickets are left at zero)."""
+    x, res, gamma, _, dy = _ln_bwd_inputs(cuda_device, 15696, 768,
+                                          torch.bfloat16, 3)
+    kw = dict(rate=0.1, eps=1e-12, seed=7)
+    first, second = (tfl.fused_ln_bwd(x, res, gamma, dy, **kw)
+                     for _ in range(2))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfl.fused_ln_bwd(x, res, gamma, dy, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = tfl.fused_ln_bwd(x, res, gamma, dy, **kw)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, second, captured):
+            assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def _attn_inputs(device, B, L, heads, dtype, seed):

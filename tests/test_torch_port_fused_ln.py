@@ -197,3 +197,31 @@ def test_backward_routes_cpu_tensors_to_plain_without_counting():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert tfl.fused_ln_bwd.launches == before
+
+
+K4_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__6b1f0c2e_11_fus\
+ed_ln_cu_6b1f0c2e19fused_ln_bwd_kernelI13__nv_bfloat16Li3EEEvPKT_S5_PKfS5_\
+PS3_S8_PfS9_Pjiiiiijjff' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__6b1f0c2e_11_fused
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 1 bytes smem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__6b1f0c2e_11_fus\
+ed_ln_cu_6b1f0c2e19fused_ln_bwd_kernelIfLi8EEEvPKT_S3_PKfS3_PS1_S6_PfS7_Pj\
+iiiiijjff' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 140 registers, used 1 barriers, 1 bytes smem
+"""
+
+
+def test_ptxas_report_names_each_k4_instantiation():
+    """build.ptxas_report keeps an integer template argument (K4's chunks
+    a lane holds) in the kernel's name, so K4's instantiations are
+    reported, and checked for spills, one by one."""
+    from medvill_torch.ops import build
+
+    assert build.ptxas_report(K4_PTXAS_LOG) == {
+        "fused_ln_bwd_kernel<3>[bf16]": {"spill_stores": 0, "spill_loads": 0,
+                                         "registers": 96, "static_smem": 1},
+        "fused_ln_bwd_kernel<8>[f32]": {"spill_stores": 0, "spill_loads": 0,
+                                        "registers": 140, "static_smem": 1}}

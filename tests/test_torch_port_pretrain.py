@@ -264,7 +264,7 @@ def test_three_adamw_steps_match_jax(accum):
                         jax.random.PRNGKey(0))
 
     pc = port_cfg(cfg)
-    ts = tpre.init_state(pc)
+    ts = tpre.init_state(pc, device="cpu")
     ts.model.load_state_dict(torch_model(cfg, params, stats).state_dict())
     train_step = tpre.make_train_step(pc)
     gen = torch.Generator().manual_seed(0)

@@ -160,7 +160,7 @@ def test_train_step_draws_from_its_generator_and_learns():
     cfg, batch = _tiny_state()
     runs = []
     for _ in range(2):
-        state = tpre.init_state(cfg, seed=1)
+        state = tpre.init_state(cfg, seed=1, device="cpu")
         step = tpre.make_train_step(cfg)
         gen = torch.Generator().manual_seed(9)
         runs.append([step(state, batch, gen)["loss"].item()
@@ -178,7 +178,7 @@ def test_gathered_mlm_loss_equals_full_projection():
     all-positions CE agree (mlm_gather_bound 0 projects every position)."""
     cfg, batch = _tiny_state()
     cfg = dataclasses.replace(cfg, itm_task=False)
-    state = tpre.init_state(cfg, seed=2)
+    state = tpre.init_state(cfg, seed=2, device="cpu")
     out = {}
     for bound in (0, 6):
         c = dataclasses.replace(cfg, mlm_gather_bound=bound)
