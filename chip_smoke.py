@@ -46,8 +46,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (autograd through it for K2, the backward captured on its forward's
    stream), achieved TFLOP/s, the share of tile pairs skipped (read back
    from K1 and both K2 tile kernels by NaN probes, fa.skipped_tiles, and
-   equal to masks.tile_skippable pair by pair), eager per-call times, the kernels' times at rate 0 (the library's conditions)
-   and the f32 kernels' times.
+   equal to masks.tile_skippable pair by pair), eager per-call times, the
+   kernels' times at rate 0 (the library's conditions) and the f32
+   kernels' times.  Then K1/K2 at the finetune step's call (B = 4, L =
+   512, s2s, bf16, rate 0.1): against the plain versions, and timed beside
+   their plain versions and the library.
 6. kernel-ln-bwd: the fused-LN backward K4 against its plain version and
    against autograd through the plain forward, and K3 with dropout 0.1,
    at the training shape R = 36 * 436 = 15696, H = 768, f32 and bf16,
@@ -57,7 +60,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (autograd through F.layer_norm(x + res) for K4, F.layer_norm(x + res)
    for K3), and eager per-call times.  Then K4 at its grid's edges, rate
    0.1: 1 and 15697 rows at H 768 bf16, 15697 at H 1024 bf16, 1 and 15697
-   at H 32 f32.
+   at H 32 f32.  Then K3/K4 at the finetune step's call (R = 4 * 512, bf16,
+   rate 0.1, eps 1e-5), checked and timed the same way.
 7. train: python -m medvill_torch.cli.pretrain_main's entry point at the
    full configuration (BERT-base, ResNet-50 at 512 px, 180 random-pixel
    embeds, seq_len 253 so L = 436, BAR, batch 36, accumulation 4, AdamW lr
@@ -77,8 +81,31 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    plain path's own bf16-vs-f32 distance, and tensor by tensor (key biases
    aside) the gradient's distance within twice that tensor's bf16-vs-f32
    distance.
+10. finetune: python -m medvill_torch.cli.finetune_main's entry point at its
+   defaults (BERT-base VLP, 6 token types, LN eps 1e-5, ResNet-50 at 512 px
+   with 256 fibers, L = 512, s2s masks, batch 4, max_pred 128, BertAdam lr
+   3e-5, label smoothing 0.1) with {"fused_ln": true}, recovering the
+   train phase's pretrain model.0.bin, one epoch over its first 32 records
+   (8 micro-steps): token-type rows 2, 3, 4 recovered from pretrain row 0
+   and row 5 from row 1; finite losses; exactly 12 K1, 12 K2, 24 K3 and 24
+   K4 launches per micro-step; model.0.bin written in the reference VLP
+   layout loads strictly, and a greedy decode of 2 images x 16 tokens from
+   it gives finite log-probabilities.  Reports/s, ms per micro-step, peak
+   memory.
+11. finetune-steps: medvill_torch.train.finetune on one repeated batch, a
+   generator of the same seed per step, lr 1e-4, t_total 4, 5 micro-steps:
+   the second loss equals the first within 1e-6 relative (the first update
+   has lr 0) and the last is below the first; 2 VQA micro-steps (458
+   answers) on synthetic questions over the same images and the VQA eval
+   (finite accuracies); then the steady ms per micro-step, fused_ln on and
+   off.
+12. finetune-parity: train-parity's method on one report-generation step,
+   batch 4 (rows s2s, s2s, bi, bar), fused_ln on, dropout 0.1, with the same
+   f32 and bf16 legs and tolerances.
 
-Then the line of kernels, and last {"ok": true, "device": {...}}.  Without
+Then the line of kernels (each with its launches by path and, beside the
+training shape's figures, its figures at the finetune shape), and last
+{"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
 from __future__ import annotations
@@ -89,6 +116,7 @@ import io
 import json
 import logging
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -100,13 +128,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from medvill_torch.cli import pretrain_main, serve_main
+from medvill_torch.checkpoint import recover_pretrain_into_vlp
+from medvill_torch.cli import finetune_main, pretrain_main, serve_main
 from medvill_torch.config import (BertConfig, ImageEncoderConfig, MaskVariant,
                                   PretrainConfig)
 from medvill_torch.convert import load_vlp_checkpoint
+from medvill_torch.data import images as image_lib
 from medvill_torch.data import masks
-from medvill_torch.data.pretrain import BatchLoader, CXRPretrainDataset
+from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
+                                         collate)
+from medvill_torch.data.seq2seq import Img2TxtDataset, Seq2seqPreprocessor
 from medvill_torch.data.tokenization import BertTokenizer
+from medvill_torch.data.vqa import VQADataset, synthetic_vqa_entries
 from medvill_torch.models import bert as bert_lib
 from medvill_torch.models import decoder
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
@@ -114,6 +147,7 @@ from medvill_torch.ops import build
 from medvill_torch.ops import flash_attention as fa
 from medvill_torch.ops import fused_ln
 from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.train import finetune as finetune_lib
 from medvill_torch.train import pretrain as pretrain_lib
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
@@ -130,6 +164,9 @@ HEADS, HEAD_DIM = 12, 64
 FT_B, FT_L, FT_IMG_BLOCK = 4, 512, 258   # a finetune shape (seq2seq family)
 TRAIN_RECORDS, TRAIN_IMAGES = 288, 8
 MICRO_STEPS = TRAIN_RECORDS // PRE_B
+# finetuning: the finetune CLI's defaults over the first FT_RECORDS records
+FT_RECORDS = 32
+FT_MICRO_STEPS = FT_RECORDS // FT_B
 # the K4 instantiation of the training call (bf16, 3 chunks a lane at H 768)
 K4_MAIN = "fused_ln_bwd_kernel<3>[bf16]"
 
@@ -583,36 +620,6 @@ def phase_kernel_attn(device) -> dict:
     kw = dict(img_block=PRE_IMG_BLOCK, l_real=PRE_L,
               family=fa.FAMILY_PRETRAIN, rate=0.1, seed=5)
     o, lse = fa.attn_fwd(q, k, v, spec, **kw)
-
-    def k1():
-        fa.attn_fwd(q, k, v, spec, **kw)
-
-    def k2():
-        fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
-
-    def k1_plain():
-        fa.attn_fwd_plain(q, k, v, spec, **kw)
-
-    def k2_plain():
-        fa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
-
-    bias = fa.score_bias(spec, PRE_L, PRE_IMG_BLOCK, PRE_L,
-                         fa.FAMILY_PRETRAIN).to(dtype)
-    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    do_l = do.transpose(1, 2).contiguous()
-    lib_stream = torch.cuda.Stream()
-    lib_stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(lib_stream):
-        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
-
-    def k1_library():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
-
-    def k2_library():
-        torch.autograd.grad(out, (ql, kl, vl), do_l, retain_graph=True)
-
     # K2 has one writer per output element: two calls agree bit for bit
     first, second = (fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
                      for _ in range(2))
@@ -638,26 +645,13 @@ def phase_kernel_attn(device) -> dict:
     def k2_rate0():
         fa.attn_bwd(q, k, v, o, do, lse, spec, **kw0)
 
-    t = {"k1_ms": device_ms(k1, iters=50, reps=3),
-         "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
-         "k1_library_ms": device_ms(k1_library, iters=50, reps=3),
-         "k2_ms": device_ms(k2, iters=20, reps=3),
-         "k2_plain_ms": device_ms(k2_plain, iters=3, reps=2),
-         "k2_library_ms": device_ms(k2_library, iters=20, reps=3,
-                                    stream=lib_stream),
-         "k2_library_eager_ms": eager_ms(k2_library, iters=10, warmup=2),
-         "k1_eager_ms": eager_ms(k1, iters=20, warmup=3),
-         "k2_eager_ms": eager_ms(k2, iters=10, warmup=2),
+    t = {**_attn_times(q, k, v, do, spec, kw),
          "k1_f32_ms": device_ms(k1_f32, iters=5, reps=2),
          "k2_f32_ms": device_ms(k2_f32, iters=3, reps=2),
          "k1_rate0_ms": device_ms(k1_rate0, iters=50, reps=3),
          "k2_rate0_ms": device_ms(k2_rate0, iters=20, reps=3)}
     del f32_in, o32, lse32
-    elems = PRE_B * PRE_L * HEADS * HEAD_DIM
     pairs = PRE_B * HEADS * PRE_L * PRE_L * HEAD_DIM
-    k1_bound, k1_by = bound(4 * elems * 2, 4 * pairs, dtype)
-    # K2 reads q, k, v, o, dO and writes dq, dk, dv
-    k2_bound, k2_by = bound(8 * elems * 2, 10 * pairs, dtype)
     tflops = {"k1_tflops": 4 * pairs / t["k1_ms"] * 1e-9,
               "k2_tflops": 10 * pairs / t["k2_ms"] * 1e-9,
               "k1_library_tflops": 4 * pairs / t["k1_library_ms"] * 1e-9,
@@ -683,21 +677,113 @@ def phase_kernel_attn(device) -> dict:
           "yardstick": yardstick,
           "timed": "pretrain B=36 L=436 12x64 bf16 BAR rate 0.1", **t,
           **tflops, "skipped_tile_pairs": skipped_share,
-          "skips_read_back_equal_predicate": True,
-          "k1_bound_ms": k1_bound, "k1_bound_by": k1_by,
-          "k2_bound_ms": k2_bound, "k2_bound_by": k2_by})
+          "skips_read_back_equal_predicate": True})
+    del q, k, v, do, o, lse
+    ft = _finetune_shape_attn(device, gen)
     k2_err = max(main_errs[n] for n in ("dq", "dk", "dv"))
     return {"K1": {"max_abs_err": main_errs["o"], "ms": t["k1_ms"],
-                   "plain_ms": t["k1_plain_ms"], "bound_ms": k1_bound,
-                   "bound_by": k1_by, "library_ms": t["k1_library_ms"],
+                   "plain_ms": t["k1_plain_ms"], "bound_ms": t["k1_bound_ms"],
+                   "bound_by": t["k1_bound_by"],
+                   "library_ms": t["k1_library_ms"],
                    "tflops": tflops["k1_tflops"], "f32_ms": t["k1_f32_ms"],
-                   "skipped_tile_pairs": skipped_share},
+                   "skipped_tile_pairs": skipped_share,
+                   "finetune_shape": ft["K1"]},
             "K2": {"max_abs_err": k2_err, "ms": t["k2_ms"],
-                   "plain_ms": t["k2_plain_ms"], "bound_ms": k2_bound,
-                   "bound_by": k2_by, "library_ms": t["k2_library_ms"],
+                   "plain_ms": t["k2_plain_ms"], "bound_ms": t["k2_bound_ms"],
+                   "bound_by": t["k2_bound_by"],
+                   "library_ms": t["k2_library_ms"],
                    "library_eager_ms": t["k2_library_eager_ms"],
                    "tflops": tflops["k2_tflops"], "f32_ms": t["k2_f32_ms"],
-                   "skipped_tile_pairs": skipped_share}}
+                   "skipped_tile_pairs": skipped_share,
+                   "finetune_shape": ft["K2"]}}
+
+
+def _attn_times(q, k, v, do, spec, kw: dict) -> dict:
+    """Device times (CUDA graphs) of K1 and K2 on bf16 [B, L, heads, 64]
+    inputs, of their plain versions and of the library calls
+    (F.scaled_dot_product_attention with the same -10000 bias at rate 0,
+    autograd through it for K2, the backward captured on its forward's
+    stream); eager per-call times; the bounds: K1 reads q, k, v and writes
+    o, K2 reads q, k, v, o, dO and writes dq, dk, dv."""
+    B, L = q.shape[:2]
+    o, lse = fa.attn_fwd(q, k, v, spec, **kw)
+
+    def k1():
+        fa.attn_fwd(q, k, v, spec, **kw)
+
+    def k2():
+        fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+
+    def k1_plain():
+        fa.attn_fwd_plain(q, k, v, spec, **kw)
+
+    def k2_plain():
+        fa.attn_bwd_plain(q, k, v, o, do, lse, spec, **kw)
+
+    bias = fa.score_bias(spec, L, kw["img_block"], L,
+                         kw["family"]).to(q.dtype)
+    ql, kl, vl = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    do_l = do.transpose(1, 2).contiguous()
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
+
+    def k1_library():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias)
+
+    def k2_library():
+        torch.autograd.grad(out, (ql, kl, vl), do_l, retain_graph=True)
+
+    elems = B * L * HEADS * HEAD_DIM
+    pairs = B * HEADS * L * L * HEAD_DIM
+    k1_bound, k1_by = bound(4 * elems * 2, 4 * pairs, q.dtype)
+    k2_bound, k2_by = bound(8 * elems * 2, 10 * pairs, q.dtype)
+    return {"k1_ms": device_ms(k1, iters=50, reps=3),
+            "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
+            "k1_library_ms": device_ms(k1_library, iters=50, reps=3),
+            "k2_ms": device_ms(k2, iters=20, reps=3),
+            "k2_plain_ms": device_ms(k2_plain, iters=3, reps=2),
+            "k2_library_ms": device_ms(k2_library, iters=20, reps=3,
+                                       stream=lib_stream),
+            "k2_library_eager_ms": eager_ms(k2_library, iters=10, warmup=2),
+            "k1_eager_ms": eager_ms(k1, iters=20, warmup=3),
+            "k2_eager_ms": eager_ms(k2, iters=10, warmup=2),
+            "k1_bound_ms": k1_bound, "k1_bound_by": k1_by,
+            "k2_bound_ms": k2_bound, "k2_bound_by": k2_by}
+
+
+def _finetune_shape_attn(device, gen) -> dict:
+    """K1/K2 at the finetune step's call (B = 4, L = 512, img_block 258,
+    s2s, bf16, rate 0.1) against their plain versions (fa.bf16_tolerances)
+    and timed (_attn_times); returns the kernels-line entries."""
+    q, k, v, do, spec = _attn_inputs(device, gen, FT_B, FT_L, FT_IMG_BLOCK,
+                                     fa.FAMILY_SEQ2SEQ, 1, torch.bfloat16)
+    kw = dict(img_block=FT_IMG_BLOCK, l_real=FT_L, family=fa.FAMILY_SEQ2SEQ,
+              rate=0.1, seed=6)
+    o, lse = fa.attn_fwd(q, k, v, spec, **kw)
+    grads = fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+    torch.cuda.synchronize()
+    want_o, _ = fa.attn_fwd_plain(q, k, v, spec, **kw)
+    want = dict(zip(("dq", "dk", "dv"), fa.attn_bwd_plain(
+        q, k, v, o, do, lse, spec, **kw)))
+    tol = fa.bf16_tolerances(q, k, v, o, do, lse, spec,
+                             {"o": want_o, **want}, **kw)
+    o_err = max_err(o, want_o, tol["o"], "K1 o finetune shape")
+    g_err = max(max_err(g, want[n], tol[n], f"K2 {n} finetune shape")
+                for n, g in zip(("dq", "dk", "dv"), grads))
+    t = _attn_times(q, k, v, do, spec, kw)
+    emit({"phase": "kernel-attn", "timed": "finetune B=4 L=512 12x64 bf16 "
+                                           "s2s rate 0.1", **t,
+          "max_abs_err": {"o": o_err, "grads": g_err}})
+    return {kid: {"max_abs_err": err, "ms": t[f"{n}_ms"],
+                  "plain_ms": t[f"{n}_plain_ms"],
+                  "bound_ms": t[f"{n}_bound_ms"],
+                  "bound_by": t[f"{n}_bound_by"],
+                  "library_ms": t[f"{n}_library_ms"]}
+            for kid, n, err in (("K1", "k1", o_err), ("K2", "k2", g_err))}
 
 
 def _attn_yardstick(device, gen) -> dict:
@@ -787,8 +873,8 @@ def _ln_inputs(device, gen, rows: int, h: int, dtype) -> tuple:
 
 def phase_kernel_ln_bwd(device, ptxas: dict) -> dict:
     """K4 (and K3 at dropout 0.1) at the training shape; K4 also at the
-    edges of its persistent grid.  Returns the kernels-line entries (bf16,
-    dropout 0.1)."""
+    edges of its persistent grid; both at the finetune step's call.  Returns
+    the kernels-line entries (bf16, dropout 0.1)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     rows = PRE_B * PRE_L
     out = {}
@@ -821,62 +907,17 @@ def phase_kernel_ln_bwd(device, ptxas: dict) -> dict:
                     "registers"], "blocks_per_sm": per_sm,
                     "warps_per_block": warps, "sms": sms,
                     "grid": fused_ln.bwd_grid(device.index, H, True, rows)}
-
-                def k4():
-                    fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
-
-                def k4_plain():
-                    fused_ln.fused_dropout_add_ln_bwd_plain(x, res, gamma,
-                                                            dy, **kw)
-
-                def k3():
-                    fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw)
-
-                def k3_plain():
-                    fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta,
-                                                        **kw)
-
-                lx, lr_, lg, lb = (t.detach().clone().requires_grad_()
-                                   for t in (x, res, gamma.to(dtype),
-                                             beta.to(dtype)))
-                lib_stream = torch.cuda.Stream()
-                lib_stream.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(lib_stream):
-                    ly = F.layer_norm(lx + lr_, (H,), lg, lb, 1e-12)
-
-                def k4_library():
-                    torch.autograd.grad(ly, (lx, lr_, lg, lb), dy,
-                                        retain_graph=True)
-
-                def k3_library():
-                    F.layer_norm(x + res, (H,), lg.detach(), lb.detach(),
-                                 1e-12)
-
-                t = {"k4_ms": device_ms(k4, iters=50, reps=3),
-                     "k4_plain_ms": device_ms(k4_plain, iters=10, reps=2),
-                     "k4_library_ms": device_ms(k4_library, iters=50, reps=3,
-                                                stream=lib_stream),
-                     "k4_library_eager_ms": eager_ms(k4_library, iters=50,
-                                                     warmup=5),
-                     "k4_eager_ms": eager_ms(k4, iters=50, warmup=5),
-                     "k3_ms": device_ms(k3, iters=50, reps=3),
-                     "k3_plain_ms": device_ms(k3_plain, iters=10, reps=2),
-                     "k3_library_ms": device_ms(k3_library, iters=50,
-                                                reps=3)}
-                k4_bound, k4_by = bound(5 * rows * H * 2 + 3 * H * 4,
-                                        20 * rows * H, dtype)
-                k3_bound, k3_by = bound(3 * rows * H * 2 + 2 * H * 4,
-                                        10 * rows * H, dtype)
-                rec.update(t, k4_bound_ms=k4_bound, k4_bound_by=k4_by,
-                           k3_bound_ms=k3_bound, k3_bound_by=k3_by,
-                           k4_deterministic=True, k4=k4_build)
+                t = _ln_times(x, res, gamma, beta, dy, kw)
+                rec.update(t, k4_deterministic=True, k4=k4_build)
                 out = {"K3": {"max_abs_err": errs["k3_y"], "ms": t["k3_ms"],
                               "plain_ms": t["k3_plain_ms"],
-                              "bound_ms": k3_bound, "bound_by": k3_by,
+                              "bound_ms": t["k3_bound_ms"],
+                              "bound_by": t["k3_bound_by"],
                               "library_ms": t["k3_library_ms"]},
                        "K4": {"max_abs_err": max(errs["dx"], errs["dres"]),
                               "ms": t["k4_ms"], "plain_ms": t["k4_plain_ms"],
-                              "bound_ms": k4_bound, "bound_by": k4_by,
+                              "bound_ms": t["k4_bound_ms"],
+                              "bound_by": t["k4_bound_by"],
                               "library_ms": t["k4_library_ms"],
                               "library_eager_ms": t["k4_library_eager_ms"],
                               **k4_build}}
@@ -891,7 +932,78 @@ def phase_kernel_ln_bwd(device, ptxas: dict) -> dict:
         edges[what] = _k4_errs(*_ln_inputs(device, gen, n, h, dtype),
                                dict(rate=0.1, eps=1e-12, seed=78), what)
     emit({"phase": "kernel-ln-bwd", "rate": 0.1, "edges": edges})
+    # the finetune step's call: R = 4 * 512, LN eps 1e-5
+    rows = FT_B * FT_L
+    x, res, gamma, beta, dy = _ln_inputs(device, gen, rows, H,
+                                         torch.bfloat16)
+    kw = dict(rate=0.1, eps=1e-5, seed=79)
+    errs = _k4_errs(x, res, gamma, beta, dy, kw, "finetune shape")
+    y_want = fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta, **kw)
+    errs["k3_y"] = max_err(fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw),
+                           y_want, bf16_tol(y_want), "K3 finetune shape")
+    t = _ln_times(x, res, gamma, beta, dy, kw)
+    emit({"phase": "kernel-ln-bwd", "rows": rows, "h": H, "dtype": "bfloat16",
+          "rate": 0.1, "timed": "finetune R=2048", "max_abs_err": errs, **t})
+    for kid, n, err in (("K3", "k3", errs["k3_y"]),
+                        ("K4", "k4", max(errs["dx"], errs["dres"]))):
+        out[kid]["finetune_shape"] = {
+            "max_abs_err": err, "ms": t[f"{n}_ms"],
+            "plain_ms": t[f"{n}_plain_ms"], "bound_ms": t[f"{n}_bound_ms"],
+            "bound_by": t[f"{n}_bound_by"],
+            "library_ms": t[f"{n}_library_ms"]}
     return out
+
+
+def _ln_times(x, res, gamma, beta, dy, kw: dict) -> dict:
+    """Device times (CUDA graphs) of K4 and K3 on [R, H] inputs, of their
+    plain versions and of the library calls (autograd through
+    F.layer_norm(x + res) for K4, captured on its forward's stream;
+    F.layer_norm(x + res) for K3); eager per-call times of K4 and its
+    library call; the bounds: K4 reads x, res, dy, gamma and writes dx,
+    dres, dgamma, dbeta, K3 reads x, res, gamma, beta and writes y."""
+    rows, h = x.shape
+    dtype = x.dtype
+
+    def k4():
+        fused_ln.fused_ln_bwd(x, res, gamma, dy, **kw)
+
+    def k4_plain():
+        fused_ln.fused_dropout_add_ln_bwd_plain(x, res, gamma, dy, **kw)
+
+    def k3():
+        fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw)
+
+    def k3_plain():
+        fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta, **kw)
+
+    lx, lr_, lg, lb = (t.detach().clone().requires_grad_()
+                       for t in (x, res, gamma.to(dtype), beta.to(dtype)))
+    lib_stream = torch.cuda.Stream()
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        ly = F.layer_norm(lx + lr_, (h,), lg, lb, kw["eps"])
+
+    def k4_library():
+        torch.autograd.grad(ly, (lx, lr_, lg, lb), dy, retain_graph=True)
+
+    def k3_library():
+        F.layer_norm(x + res, (h,), lg.detach(), lb.detach(), kw["eps"])
+
+    k4_bound, k4_by = bound(5 * rows * h * 2 + 3 * h * 4, 20 * rows * h,
+                            dtype)
+    k3_bound, k3_by = bound(3 * rows * h * 2 + 2 * h * 4, 10 * rows * h,
+                            dtype)
+    return {"k4_ms": device_ms(k4, iters=50, reps=3),
+            "k4_plain_ms": device_ms(k4_plain, iters=10, reps=2),
+            "k4_library_ms": device_ms(k4_library, iters=50, reps=3,
+                                       stream=lib_stream),
+            "k4_library_eager_ms": eager_ms(k4_library, iters=50, warmup=5),
+            "k4_eager_ms": eager_ms(k4, iters=50, warmup=5),
+            "k3_ms": device_ms(k3, iters=50, reps=3),
+            "k3_plain_ms": device_ms(k3_plain, iters=10, reps=2),
+            "k3_library_ms": device_ms(k3_library, iters=50, reps=3),
+            "k4_bound_ms": k4_bound, "k4_bound_by": k4_by,
+            "k3_bound_ms": k3_bound, "k3_bound_by": k3_by}
 
 
 def write_train_data(d: str, vocab: str) -> str:
@@ -960,9 +1072,9 @@ def _train_batch(data: str, vocab: str, cfg, device, batch_size: int):
     return pretrain_lib.to_device(next(iter(loader)), device)
 
 
-def _steady_ms(cfg, batch, device, steps: int = 4) -> float:
-    state = pretrain_lib.init_state(cfg, seed=SEED, device=device)
-    step = pretrain_lib.make_train_step(cfg)
+def _steady_ms(state, step, batch, steps: int = 4) -> float:
+    """Host-clock ms per micro-step of ``step(state, batch, generator)``
+    after two of warmup, ending in a sync."""
     gen = torch.Generator().manual_seed(SEED)
     for _ in range(2):
         step(state, batch, gen)
@@ -1001,7 +1113,9 @@ def phase_train_fused(data: str, vocab: str, device) -> dict:
         c = dataclasses.replace(
             cfg, bert=dataclasses.replace(bert, fused_ln=fused),
             gradient_accumulation_steps=4)
-        timing["fused" if fused else "unfused"] = _steady_ms(c, batch, device)
+        timing["fused" if fused else "unfused"] = _steady_ms(
+            pretrain_lib.init_state(c, seed=SEED, device=device),
+            pretrain_lib.make_train_step(c), batch)
     emit({"phase": "train-fused", "losses": losses, "launches": counts,
           "launches_per_micro_step": {k: v / 4 for k, v in counts.items()},
           "steady_ms_per_micro_step": timing,
@@ -1010,33 +1124,30 @@ def phase_train_fused(data: str, vocab: str, device) -> dict:
     return counts
 
 
-def _parity_step(data, vocab, device, compute_dtype: str) -> dict:
-    """One step at full width, batch 4, fused_ln on, dropout 0.1, in
-    ``compute_dtype``: the kernel path (K1-K4) and the plain path (the same
-    model with the plain versions swapped in) from the same weights, batch,
-    pixels and dropout seeds.  Returns {path: (loss, {name: grad})}."""
-    bert = dataclasses.replace(BertConfig(), compute_dtype=compute_dtype,
-                               fused_ln=True)
-    cfg = PretrainConfig(bert=bert, image=ImageEncoderConfig(),
-                         batch_size=4, gradient_accumulation_steps=1)
-    batch = _train_batch(data, vocab, cfg, device, 4)
-    model = pretrain_lib.build_model(cfg)
-    init_weights(model, SEED)
-    model.to(device)
-    buffers = {k: v.clone() for k, v in model.named_buffers()}
-    pix = pretrain_lib.sample_pixel_indices(
-        torch.Generator().manual_seed(SEED), cfg.image.num_fibers,
-        cfg.image.num_image_embeds).to(device)
-    spec = batch["mask_spec"]
+KERNEL_COUNTS = {"K1": 12, "K2": 12, "K3": 24, "K4": 24}
 
-    def plain_attention(q, k, v, bias, rng=None, deterministic=True):
-        rate = 0.0 if deterministic else bert.attention_probs_dropout_prob
-        seed = rng.next_seed() if rate > 0 else 0
-        return fa.attn_fwd_plain(q, k, v, spec, img_block=PRE_IMG_BLOCK,
-                                 l_real=q.shape[1],
-                                 family=fa.FAMILY_PRETRAIN, rate=rate,
+
+def _plain_attention(spec, img_block: int, family: int, rate: float):
+    """The attention kernels' plain version behind the ``attention_fn`` hook,
+    drawing its seed from the rng as make_attention_fn does."""
+
+    def fn(q, k, v, bias, rng=None, deterministic=True):
+        r = 0.0 if deterministic else rate
+        seed = rng.next_seed() if r > 0 else 0
+        return fa.attn_fwd_plain(q, k, v, spec, img_block=img_block,
+                                 l_real=q.shape[1], family=family, rate=r,
                                  seed=seed)[0]
 
+    return fn
+
+
+def _kernel_and_plain(model, loss_fn, plain_attention, what: str) -> dict:
+    """One step's loss and gradients by the kernel path (K1-K4, once each
+    per layer) and by the plain path (the plain versions swapped in), from
+    the same weights and BatchNorm statistics.  ``loss_fn(attention_fn)``
+    runs the forward, with None for the kernels.  Returns {path: (loss,
+    {name: grad})}."""
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
     out = {}
     kernel_ln = bert_lib.fused_dropout_add_ln
     for path in ("kernel", "plain"):
@@ -1049,21 +1160,45 @@ def _parity_step(data, vocab, device, compute_dtype: str) -> dict:
             if path == "plain":
                 bert_lib.fused_dropout_add_ln = \
                     fused_ln.fused_dropout_add_ln_plain
-            loss, _ = pretrain_lib.pretrain_loss_and_metrics(
-                model, batch, DropoutRNG(SEED + 3, device), pix, cfg,
-                train=True,
-                attention_fn=plain_attention if path == "plain" else None)
+            loss = loss_fn(plain_attention if path == "plain" else None)
             loss.backward()
         finally:
             bert_lib.fused_dropout_add_ln = kernel_ln
         counts = read_counts()
-        check((counts == {"K1": 12, "K2": 12, "K3": 24, "K4": 24})
-              if path == "kernel" else not any(counts.values()),
-              f"{compute_dtype} {path} path launches {counts}")
+        check((counts == KERNEL_COUNTS) if path == "kernel"
+              else not any(counts.values()),
+              f"{what} {path} path launches {counts}")
         out[path] = (loss.item(), {n: p.grad.detach().float().clone()
                                    for n, p in model.named_parameters()
                                    if p.grad is not None})
     return out
+
+
+def _parity_step(data, vocab, device, compute_dtype: str) -> dict:
+    """One pretraining step at full width, batch 4, fused_ln on, dropout
+    0.1, in ``compute_dtype``, by both paths (_kernel_and_plain) from the
+    same weights, batch, pixels and dropout seeds."""
+    bert = dataclasses.replace(BertConfig(), compute_dtype=compute_dtype,
+                               fused_ln=True)
+    cfg = PretrainConfig(bert=bert, image=ImageEncoderConfig(),
+                         batch_size=4, gradient_accumulation_steps=1)
+    batch = _train_batch(data, vocab, cfg, device, 4)
+    model = pretrain_lib.build_model(cfg)
+    init_weights(model, SEED)
+    model.to(device)
+    pix = pretrain_lib.sample_pixel_indices(
+        torch.Generator().manual_seed(SEED), cfg.image.num_fibers,
+        cfg.image.num_image_embeds).to(device)
+
+    def loss_fn(attention_fn):
+        return pretrain_lib.pretrain_loss_and_metrics(
+            model, batch, DropoutRNG(SEED + 3, device), pix, cfg,
+            train=True, attention_fn=attention_fn)[0]
+
+    return _kernel_and_plain(
+        model, loss_fn, _plain_attention(
+            batch["mask_spec"], PRE_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+            bert.attention_probs_dropout_prob), f"train {compute_dtype}")
 
 
 def _compare_grads(got: dict, want: dict) -> tuple:
@@ -1090,26 +1225,20 @@ def _compare_grads(got: dict, want: dict) -> tuple:
     return worst_name, worst, key_bias
 
 
-def phase_train_parity(data: str, vocab: str, device) -> None:
-    """The kernel path against the plain path, one step each (see
-    _parity_step), in two legs.  f32 (TF32 off): the loss within 1e-4
-    relative and every gradient within 1e-3 of its scale.  bf16: the
-    kernels round P and dS to bf16 between products and K3/K4 round their
-    outputs, where the plain path computes attention and LN in f32 and
-    rounds once; every other operation is the same bf16 arithmetic on both
-    paths.  So the kernel path may move the step by about what bf16 compute
-    itself moves it, measured here as the plain path's distance in bf16
-    from the same step in f32: the loss's relative distance within twice
-    that of the plain path, and each gradient tensor's largest distance
-    within twice the plain path's for that tensor.  Key biases are left
-    out of the per-tensor test: their exact gradient is 0 (see
-    _compare_grads), so both distances are rounding noise."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    legs = {dt: _parity_step(data, vocab, device, dt)
-            for dt in ("float32", "bfloat16")}
-    rec = {"phase": "train-parity", "tf32": False, "batch": 4,
-           "dropout": 0.1, "fused_ln": True}
+def _check_parity_legs(legs: dict, rec: dict, phase: str) -> None:
+    """The kernel path against the plain path in two legs (see
+    _kernel_and_plain).  f32 (TF32 off): the loss within 1e-4 relative and
+    every gradient within 1e-3 of its scale.  bf16: the kernels round P and
+    dS to bf16 between products and K3/K4 round their outputs, where the
+    plain path computes attention and LN in f32 and rounds once; every
+    other operation is the same bf16 arithmetic on both paths.  So the
+    kernel path may move the step by about what bf16 compute itself moves
+    it, measured here as the plain path's distance in bf16 from the same
+    step in f32: the loss's relative distance within twice that of the
+    plain path, and each gradient tensor's largest distance within twice
+    the plain path's for that tensor.  Key biases are left out of the
+    per-tensor test: their exact gradient is 0 (see _compare_grads), so both
+    distances are rounding noise.  Fills ``rec``."""
     # the plain path's own bf16-vs-f32 distance, the bf16 leg's yardstick
     f_loss, f_grads = legs["float32"]["plain"]
     b_loss, b_grads = legs["bfloat16"]["plain"]
@@ -1121,13 +1250,13 @@ def phase_train_parity(data: str, vocab: str, device) -> None:
         worst_name, worst, key_bias = _compare_grads(k_grads, p_grads)
         loss_tol = 1e-4 if dt == "float32" else 2.0 * floor_loss
         check(np.isfinite(k_loss) and rel <= loss_tol,
-              f"train-parity {dt} loss {k_loss} vs {p_loss} (relative {rel})")
+              f"{phase} {dt} loss {k_loss} vs {p_loss} (relative {rel})")
         rec[dt] = {"losses": {"kernel": k_loss, "plain": p_loss},
                    "loss_rel_err": rel, "grads": len(p_grads),
                    "worst_grad_rel_err": worst, "worst_grad": worst_name,
                    "key_bias": key_bias, "tol": {"loss_rel": loss_tol}}
         if dt == "float32":
-            check(worst <= 1e-3, f"train-parity f32 gradient {worst_name}: "
+            check(worst <= 1e-3, f"{phase} f32 gradient {worst_name}: "
                                  f"{worst} of its scale > 1e-3")
             rec[dt]["tol"]["grad_rel_to_max"] = 1e-3
             continue
@@ -1137,7 +1266,7 @@ def phase_train_parity(data: str, vocab: str, device) -> None:
                   if not n.endswith("attention.self.key.bias")}
         ratio_name = max(ratios, key=ratios.get)
         check(ratios[ratio_name] <= 2.0,
-              f"train-parity bf16 gradient {ratio_name}: "
+              f"{phase} bf16 gradient {ratio_name}: "
               f"{ratios[ratio_name]} x the plain path's bf16-vs-f32 distance")
         rec[dt].update({"largest_kernel_over_bf16_ratio": ratios[ratio_name],
                         "largest_ratio_grad": ratio_name})
@@ -1145,6 +1274,219 @@ def phase_train_parity(data: str, vocab: str, device) -> None:
         rec[dt]["plain_bf16_vs_f32"] = {
             "loss_rel_err": floor_loss, "worst_grad_rel_err": floor,
             "worst_grad": floor_name}
+
+
+def phase_train_parity(data: str, vocab: str, device) -> None:
+    """One pretraining step, kernel path against plain path, in an f32 and
+    a bf16 leg (_check_parity_legs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    legs = {dt: _parity_step(data, vocab, device, dt)
+            for dt in ("float32", "bfloat16")}
+    rec = {"phase": "train-parity", "tf32": False, "batch": 4,
+           "dropout": 0.1, "fused_ln": True}
+    _check_parity_legs(legs, rec, "train-parity")
+    emit(rec)
+
+
+def _finetune_argv(d: str, vocab: str, data: str) -> list:
+    """The finetune CLI's arguments: its defaults, fused_ln on, the train
+    phase's pretrain checkpoint, one epoch over the first FT_RECORDS
+    records."""
+    ft_data = os.path.join(d, "finetune.jsonl")
+    with open(data) as f, open(ft_data, "w") as g:
+        g.writelines(line for _, line in zip(range(FT_RECORDS), f))
+    return ["--src_file", ft_data, "--vocab_file", vocab,
+            "--output_dir", os.path.join(d, "finetune_run"),
+            "--model_recover_path",
+            os.path.join(d, "pretrain_run", "model.0.bin"),
+            "--config_path", os.path.join(d, "config.json"),
+            "--max_pred", "128", "--num_train_epochs", "1",
+            "--device", "cuda"]
+
+
+def phase_finetune(argv: list, device) -> dict:
+    """The finetune CLI's entry point; returns the launch counts."""
+    args = finetune_main.build_parser().parse_args(argv)
+    cfg = finetune_main.config_from_args(args)
+    # the recover the CLI runs, on a model of its own: token types 2 -> 6
+    model = finetune_lib.build_model(cfg)
+    loaded, missing = recover_pretrain_into_vlp(model,
+                                                args.model_recover_path)
+    types = model.txt_embeddings.token_type_embeddings.weight.detach()
+    pre = torch.load(args.model_recover_path, map_location="cpu",
+                     weights_only=True)[
+                         "enc.txt_embeddings.token_type_embeddings.weight"]
+    check(not missing and types.shape[0] == 6
+          and torch.equal(types, pre[[0, 1, 0, 0, 0, 1]]),
+          f"recover: missing {missing}, token types {types.shape}")
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = finetune_main.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = result["epochs"][0]
+    check(row["micro_steps"] == FT_MICRO_STEPS, f"micro steps {row}")
+    check(all(np.isfinite(row[k]) for k in ("loss", "masked_lm_loss")),
+          f"non-finite losses {row}")
+    want = {k: v * FT_MICRO_STEPS for k, v in KERNEL_COUNTS.items()}
+    check(counts == want, f"finetune launches {counts} != {want}")
+    ckpt = os.path.join(args.output_dir, "model.0.bin")
+    model = VLPForPreTraining(cfg.bert, cfg.image,
+                              len_vis_input=cfg.len_vis_input)
+    check(load_vlp_checkpoint(model, ckpt) == [], "unused checkpoint keys")
+    model = model.prepare_for_compute().eval().to(device)
+    image = torch.from_numpy(np.random.default_rng(SEED + 4).integers(
+        0, 256, (2, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    settings = decoder.DecodeSettings(max_txt_length=16, mask_word_id=4,
+                                      eos_id=3)
+    with torch.inference_mode():
+        ids, logp, _ = decoder.greedy_decode(model, image, settings, 2, 3)
+    check(ids.shape == (2, 16) and bool(torch.isfinite(logp).all()),
+          f"decode from the finetuned checkpoint: {ids.shape}")
+    del model
+    emit({"phase": "finetune", "records": FT_RECORDS,
+          "micro_steps": FT_MICRO_STEPS, "batch": FT_B, "seq": FT_L,
+          "max_pred": cfg.max_pred, "recovered_tensors": len(loaded),
+          "reports_per_s": FT_MICRO_STEPS * FT_B / row["epoch_time_s"],
+          "ms_per_micro_step": row["epoch_time_s"] / FT_MICRO_STEPS * 1e3,
+          "epoch_s": row["epoch_time_s"], "wall_s": wall,
+          "peak_mem_gib": peak, "loss": row["loss"], "launches": counts,
+          "launches_per_micro_step": {k: v / FT_MICRO_STEPS
+                                      for k, v in counts.items()},
+          "decode_mean_logprob": logp.mean().item()})
+    return counts
+
+
+def _finetune_batch(cfg, vocab: str, device):
+    """The first FT_B records of the finetune data as one batch."""
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=True)
+    loader = BatchLoader(Img2TxtDataset(cfg.src_file, tok, cfg, seed=SEED),
+                         FT_B, shuffle=False)
+    return pretrain_lib.to_device(next(iter(loader)), device)
+
+
+def phase_finetune_steps(argv: list, device) -> None:
+    """Report generation through medvill_torch.train.finetune on one
+    repeated batch, each micro-step from a generator of the same seed (the
+    same dropout), lr 1e-4, t_total 4: the first update has lr 0, so the
+    second loss equals the first; the loss then falls.  2 VQA micro-steps
+    and the VQA eval; the steady ms per micro-step with fused_ln on and
+    off at the CLI's configuration."""
+    args = finetune_main.build_parser().parse_args(
+        argv + ["--learning_rate", "1e-4"])
+    cfg = finetune_main.config_from_args(args)
+    batch = _finetune_batch(cfg, args.vocab_file, device)
+    state = finetune_lib.init_state(cfg, t_total=4, seed=SEED, device=device)
+    step = finetune_lib.make_train_step(cfg)
+    losses = [step(state, batch, torch.Generator().manual_seed(SEED))
+              ["loss"].item() for _ in range(5)]
+    del state
+    check(all(np.isfinite(losses)), f"finetune-steps losses {losses}")
+    check(abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0]),
+          f"the first update (lr 0) moved the loss: {losses}")
+    check(losses[-1] < losses[0], f"finetune-steps loss did not fall: "
+                                  f"{losses}")
+    # VQA: synthetic questions over the same images, 458 answers
+    vqa_cfg = dataclasses.replace(cfg, task="vqa", s2s_prob=0.5, bi_prob=0.5)
+    entries = synthetic_vqa_entries(3 * FT_B, vqa_cfg.vqa_num_answers,
+                                    seed=SEED)
+    for i, e in enumerate(entries):
+        e["image_name"] = f"img{i % TRAIN_IMAGES}.png"
+    tok = BertTokenizer.from_vocab_file(args.vocab_file, remap_unused=True)
+    root = os.path.dirname(cfg.src_file)
+    train = BatchLoader(VQADataset(vqa_cfg, tok, entries[:2 * FT_B],
+                                   image_root=root, seed=SEED), FT_B,
+                        shuffle=False)
+    test = BatchLoader(VQADataset(vqa_cfg, tok, entries[2 * FT_B:],
+                                  image_root=root, seed=SEED), FT_B,
+                       shuffle=False, drop_last=False)
+    state = finetune_lib.init_state(vqa_cfg, t_total=2, seed=SEED,
+                                    device=device)
+    vqa_step = finetune_lib.make_train_step(vqa_cfg)
+    gen = torch.Generator().manual_seed(SEED)
+    reset_counts()
+    vqa_losses = [vqa_step(state, pretrain_lib.to_device(
+        {k: b[k] for k in ("image", "input_ids", "segment_ids", "mask_spec",
+                           "ans_target")}, device), gen)["loss"].item()
+        for b in train]
+    vqa_counts = read_counts()
+    acc = finetune_lib.vqa_evaluate(finetune_lib.make_vqa_eval_step(vqa_cfg),
+                                    state, test)
+    del state
+    check(len(vqa_losses) == 2 and all(np.isfinite(vqa_losses)),
+          f"VQA losses {vqa_losses}")
+    check(vqa_counts == {k: 2 * v for k, v in KERNEL_COUNTS.items()},
+          f"VQA launches {vqa_counts}")
+    check(np.isfinite(acc["vqa_acc"]) and all(
+        np.isfinite(acc[k + "_acc"]) for k in ("closed", "open")
+        if acc["n_" + k]), f"VQA eval {acc}")
+    timing = {}
+    for fused in (True, False):
+        c = dataclasses.replace(cfg, bert=dataclasses.replace(
+            cfg.bert, fused_ln=fused))
+        timing["fused" if fused else "unfused"] = _steady_ms(
+            finetune_lib.init_state(c, t_total=100, seed=SEED,
+                                    device=device),
+            finetune_lib.make_train_step(c), batch)
+    emit({"phase": "finetune-steps", "losses": losses, "lr": cfg.lr,
+          "vqa_losses": vqa_losses, "vqa_launches": vqa_counts,
+          "vqa_eval": acc, "steady_ms_per_micro_step": timing,
+          "steady_reports_per_s": {k: FT_B / v * 1e3
+                                   for k, v in timing.items()}})
+
+
+def _finetune_parity_step(cfg, vocab: str, device,
+                          compute_dtype: str) -> dict:
+    """One report-generation step at full width, batch 4 (rows s2s, s2s,
+    bi, bar), fused_ln on, dropout 0.1, in ``compute_dtype``, by both paths
+    (_kernel_and_plain)."""
+    cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, compute_dtype=compute_dtype, fused_ln=True))
+    ds = Img2TxtDataset(cfg.src_file, BertTokenizer.from_vocab_file(
+        vocab, remap_unused=True), cfg)
+    rows = []
+    for i, (mode, bar) in enumerate((("s2s", False), ("s2s", False),
+                                     ("bi", False), ("s2s", True))):
+        rec = ds.data[i]
+        row = Seq2seqPreprocessor(cfg, ds.tokenizer, mode, bar=bar)(
+            ds.tokenizer.tokenize(rec["text"]), rng=random.Random(i))
+        row["image"] = image_lib.as_wire_image(ds.image_loader(rec["img"]))
+        rows.append(row)
+    batch = pretrain_lib.to_device(collate(rows), device)
+    check(batch["mask_spec"][:, 0].tolist() == [1, 1, 0, 2],
+          f"parity modes {batch['mask_spec'].tolist()}")
+    model = finetune_lib.build_model(cfg)
+    init_weights(model, SEED)
+    model.to(device)
+
+    def loss_fn(attention_fn):
+        return finetune_lib.finetune_loss_and_metrics(
+            model, batch, DropoutRNG(SEED + 3, device), cfg,
+            attention_fn=attention_fn)[0]
+
+    return _kernel_and_plain(
+        model, loss_fn, _plain_attention(
+            batch["mask_spec"], cfg.len_vis_input + 2, fa.FAMILY_SEQ2SEQ,
+            cfg.bert.attention_probs_dropout_prob),
+        f"finetune {compute_dtype}")
+
+
+def phase_finetune_parity(argv: list, device) -> None:
+    """train-parity's legs and tolerances on one finetune step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = finetune_main.build_parser().parse_args(argv)
+    cfg = finetune_main.config_from_args(args)
+    legs = {dt: _finetune_parity_step(cfg, args.vocab_file, device, dt)
+            for dt in ("float32", "bfloat16")}
+    rec = {"phase": "finetune-parity", "tf32": False, "batch": FT_B,
+           "modes": ["s2s", "s2s", "bi", "bar"], "dropout": 0.1,
+           "fused_ln": True}
+    _check_parity_legs(legs, rec, "finetune-parity")
     emit(rec)
 
 
@@ -1174,8 +1516,12 @@ def main() -> int:
         train_counts, data = phase_train(d, vocab)
         fused_counts = phase_train_fused(data, vocab, device)
         phase_train_parity(data, vocab, device)
+        ft_argv = _finetune_argv(d, vocab, data)
+        finetune_counts = phase_finetune(ft_argv, device)
+        phase_finetune_steps(ft_argv, device)
+        phase_finetune_parity(ft_argv, device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
-             "train-fused": fused_counts}
+             "train-fused": fused_counts, "finetune": finetune_counts}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",

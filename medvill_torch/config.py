@@ -10,7 +10,8 @@ knob), ``fused_qkv`` (a JAX parameter-tree layout) and the TPU-only
 ``PretrainConfig`` fields (``mesh_shape``, ``donate_state``,
 ``mlm_loss_chunk``) have no effect on the port.  ``fast_dropout`` selects
 the same Bernoulli(rate) marginal as plain dropout, so the port has one
-dropout for both.
+dropout for both.  ``FinetuneConfig`` has every field of the JAX one but
+``mesh_shape``.
 """
 from __future__ import annotations
 
@@ -249,7 +250,9 @@ class PretrainConfig:
 @dataclasses.dataclass(frozen=True)
 class FinetuneConfig:
     """Report-generation / VQA finetune (reference: sc/finetune.py:50-186).
-    The port reads only the decode geometry from it so far."""
+    ``drop_prob`` is the model dropout the CLI writes into both of
+    ``bert``'s rates; ``max_drop_worst_ratio`` is the drop-worst ratio, on
+    once the 1-based epoch exceeds ``drop_after``."""
 
     task: str = "report_generation"
     data_dir: str = ""
@@ -292,3 +295,4 @@ class FinetuneConfig:
     image: ImageEncoderConfig = dataclasses.field(
         default_factory=lambda: ImageEncoderConfig(num_image_embeds=256,
                                                    encoder="full-fiber"))
+    use_flash_attention: bool = True

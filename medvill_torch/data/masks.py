@@ -34,8 +34,18 @@ from medvill_torch.config import MaskVariant
 
 NEG_BIAS = -10000.0  # reference: cxrbert_origin.py:83, sc/.../model.py:819
 
+
+class Seq2seqMaskMode:
+    """The finetune mask modes (medvill_tpu masks.py:170-173)."""
+
+    S2S = "s2s"
+    BAR = "bar"
+    BI = "bi"
+
+
 # finetune mask modes and their spec ids (medvill_tpu masks.py:242-243)
-SEQ2SEQ_VARIANT_IDS = {"bi": 0, "s2s": 1, "bar": 2}
+SEQ2SEQ_VARIANT_IDS = {Seq2seqMaskMode.BI: 0, Seq2seqMaskMode.S2S: 1,
+                       Seq2seqMaskMode.BAR: 2}
 
 # mask families: pretrain (FULL/S2S/BAR/NONCROSS/ATTN1D over
 # ``[CLS] img(N) [SEP] txt``) and seq2seq (finetune bi/s2s/bar, ``txt_len``

@@ -1,5 +1,6 @@
-"""Host-side stochastic data ops: MLM masking and ITM pair sampling (a copy
-of the pretraining part of medvill_tpu/data/sampling.py).
+"""Host-side stochastic data ops: MLM masking, ITM pair sampling and the
+finetune pair truncation (a copy of the pretraining and finetune parts of
+medvill_tpu/data/sampling.py).
 
 These stay on the host with Python ``random`` to match the reference
 semantics exactly (reference: data/dataset_origin.py:183-235), and draw the
@@ -93,3 +94,37 @@ def truncate_txt(txt_tokens: List, max_seq_len: int) -> None:
     data/dataset_origin.py:17-22)."""
     while len(txt_tokens) > max_seq_len:
         txt_tokens.pop()
+
+
+def truncate_tokens_pair(tokens_a: List, tokens_b: List, max_len: int,
+                         max_len_a: int = 0, max_len_b: int = 0,
+                         trunc_seg=None, always_truncate_tail: bool = False,
+                         rng: random.Random = random
+                         ) -> Tuple[List[int], List[int]]:
+    """Pair truncation of the finetune pipeline (reference:
+    sc/data_loader.py:24-59): trim a segment over its own cap first, else
+    ``trunc_seg``, else the longer one; drop its head or its tail with
+    probability 1/2 each (one ``rng.random()`` per token removed) unless
+    ``always_truncate_tail``.  Mutates both lists; returns the (head, tail)
+    counts removed from each."""
+    num_truncated_a = [0, 0]
+    num_truncated_b = [0, 0]
+    while len(tokens_a) + len(tokens_b) > max_len:
+        if max_len_a > 0 and len(tokens_a) > max_len_a:
+            trunc, num = tokens_a, num_truncated_a
+        elif max_len_b > 0 and len(tokens_b) > max_len_b:
+            trunc, num = tokens_b, num_truncated_b
+        elif trunc_seg:
+            trunc, num = ((tokens_a, num_truncated_a) if trunc_seg == "a"
+                          else (tokens_b, num_truncated_b))
+        elif len(tokens_a) > len(tokens_b):
+            trunc, num = tokens_a, num_truncated_a
+        else:
+            trunc, num = tokens_b, num_truncated_b
+        if (not always_truncate_tail) and rng.random() < 0.5:
+            del trunc[0]
+            num[0] += 1
+        else:
+            trunc.pop()
+            num[1] += 1
+    return num_truncated_a, num_truncated_b

@@ -7,6 +7,9 @@
   ``bias``.
 - ``ITMHead`` (heads.py:62-67): an f32 ``Linear(hidden -> 2)`` on the
   pooled output, parameters under ``linear``.
+- ``VQAHead`` (heads.py:78-86): ``Linear(H -> 2H)``, ReLU,
+  ``Linear(2H -> n_answers)`` in f32, as the reference's
+  ``ans_classifier`` ``Sequential`` (parameters ``0.*`` and ``2.*``).
 
 Parameter names follow the reference's ``cls.predictions.*``:
 ``transform.dense``, ``transform.LayerNorm``, ``decoder.weight`` (the shared
@@ -79,3 +82,13 @@ class ITMHead(nn.Module):
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:
         """pooled [B, H] in any dtype -> f32 logits [B, 2]."""
         return self.linear(pooled.float())
+
+
+class VQAHead(nn.Sequential):
+    def __init__(self, hidden_size: int, n_answers: int):
+        super().__init__(nn.Linear(hidden_size, 2 * hidden_size), nn.ReLU(),
+                         nn.Linear(2 * hidden_size, n_answers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H] in any dtype -> f32 logits [B, n_answers]."""
+        return super().forward(x.float())

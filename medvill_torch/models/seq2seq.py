@@ -1,22 +1,35 @@
-"""UniLM-style report-generation model, decode entry points only
-(medvill_tpu/models/seq2seq.py:71-185,229-269).
+"""UniLM-style finetune model for report generation and VQA, and its
+decode entry points (medvill_tpu/models/seq2seq.py:71-269).
 
 Semantics kept from the JAX package:
 
 - the image segment is ``[CLS word-emb, Linear(2048->H) fibers, SEP
   word-emb]`` with positions ``[0, i for fiber i, N+1]`` -- fiber i gets
   position i, overlapping CLS at 0 -- and the segment's token types (4 under
-  new_segment_ids);
-- ``decode_logits`` projects the LAST window row only;
-- per-layer K/V caches, written in place at ``cache_index``.
+  new_segment_ids), through the shared embedding LayerNorm and dropout;
+- the training forward's text positions restart at 0 (the vendored
+  BertEmbeddings default), while decode uses its own window positions: a
+  reference train/decode inconsistency kept for parity (JAX
+  seq2seq.py:12-16);
+- a frozen trunk (``ImageEncoderConfig.freeze_prefix_stages``, the
+  reference's whole-trunk freeze) runs under ``torch.no_grad()``; with
+  ``train_cnn`` its BatchNorm uses batch statistics and updates the running
+  ones (models/resnet.py), as in pretraining;
+- report generation gathers ``masked_pos`` before the tied MLM head (with
+  ``task_idx`` under relax_projection); VQA classifies ``h[:, 0]`` in
+  training and ``h[:, 0] * h[:, len_vis + 1]`` at inference;
+- ``decode_logits`` projects the LAST window row only; per-layer K/V
+  caches are written in place at ``cache_index``.
 
 ``VLPForPreTraining`` subclasses ``VLPEncoder`` instead of holding it as
 ``bert``, so the parameter names are the reference finetune checkpoint's
 unprefixed ``txt_embeddings.* img_embeddings.img_embeddings.*
-img_encoder.model.* encoder.layer.* pooler.* cls.predictions.*``.
+img_encoder.model.* encoder.layer.* pooler.*`` and ``cls.predictions.*``
+(``ans_classifier.*`` for VQA).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -26,9 +39,10 @@ from torch import nn
 from medvill_torch.config import BertConfig, ImageEncoderConfig
 from medvill_torch.models.bert import (BertEmbeddings, BertEncoder,
                                        BertPooler, KVCache, compute_dtype,
-                                       dense, layer_norm)
-from medvill_torch.models.heads import MLMHead
+                                       dense)
+from medvill_torch.models.heads import MLMHead, VQAHead
 from medvill_torch.models.resnet import ResNet50Trunk, fibers
+from medvill_torch.ops.dropout import DropoutRNG
 
 
 class VLPEncoder(nn.Module):
@@ -47,10 +61,14 @@ class VLPEncoder(nn.Module):
             self.img_encoder.out_channels, config.hidden_size)})
         self.encoder = BertEncoder(config)
         self.pooler = BertPooler(config)
+        if image.freeze_prefix_stages:
+            self.img_encoder.requires_grad_(False)
 
-    def encode_image(self, image: torch.Tensor
+    def encode_image(self, image: torch.Tensor, train: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        feats = fibers(self.img_encoder(image))
+        frozen = self.image.freeze_prefix_stages
+        with torch.no_grad() if frozen else contextlib.nullcontext():
+            feats = fibers(self.img_encoder(image, train=train))
         B, M, _ = feats.shape
         pos = torch.arange(M, device=feats.device).expand(B, M)
         # the reference assumes fiber count == len_vis_input (256 at 512 px)
@@ -58,7 +76,10 @@ class VLPEncoder(nn.Module):
 
     def embed_image_segment(self, input_ids_seg: torch.Tensor,
                             feats: torch.Tensor, vis_pe: torch.Tensor,
-                            token_type_ids: torch.Tensor) -> torch.Tensor:
+                            token_type_ids: torch.Tensor,
+                            deterministic: bool = True,
+                            rng: Optional[DropoutRNG] = None
+                            ) -> torch.Tensor:
         """input_ids_seg [B, N+2]: only its first ([CLS]) and last ([SEP])
         ids are used."""
         emb = self.txt_embeddings
@@ -77,7 +98,28 @@ class VLPEncoder(nn.Module):
                         device=feats.device)], dim=1)
         x = (tokens.float() + emb.position_embeddings(pos_ids)
              + emb.token_type_embeddings(token_type_ids))
-        return layer_norm(emb.LayerNorm, x, self.dtype)
+        return emb.norm_and_drop(x, deterministic, rng)
+
+    def forward(self, image: torch.Tensor, input_ids: torch.Tensor,
+                token_type_ids: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                deterministic: bool = True, train_cnn: bool = False,
+                attention_fn=None, rng: Optional[DropoutRNG] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training forward: (sequence [B, L, H], pooled [B, H]).
+        input_ids and token_type_ids [B, L] hold the image segment's N + 2
+        slots first; the mask is ``bias`` [B, 1, L, L] or, with
+        ``attention_fn``, the spec the kernel closes over."""
+        N2 = self.len_vis_input + 2
+        feats, vis_pe = self.encode_image(image, train=train_cnn)
+        kw = dict(deterministic=deterministic, rng=rng)
+        img_embed = self.embed_image_segment(
+            input_ids[:, :N2], feats, vis_pe, token_type_ids[:, :N2], **kw)
+        txt_embed = self.txt_embeddings(
+            input_ids[:, N2:], token_type_ids=token_type_ids[:, N2:], **kw)
+        hidden, _ = self.encoder(torch.cat([img_embed, txt_embed], dim=1),
+                                 bias, attention_fn=attention_fn, **kw)
+        return hidden, self.pooler(hidden)
 
     def prefill(self, image: torch.Tensor, input_ids_seg: torch.Tensor,
                 token_type_ids_seg: torch.Tensor, kv_caches: List[KVCache],
@@ -110,13 +152,43 @@ class VLPEncoder(nn.Module):
 
 
 class VLPForPreTraining(VLPEncoder):
-    """VLPEncoder + the tied MLM head (report generation)."""
+    """VLPEncoder + the tied MLM head (report generation and decode) or,
+    with ``task`` "vqa", the answer classifier instead: the parameters of
+    the JAX model, whose VQA forward never builds the MLM head."""
 
     def __init__(self, config: BertConfig, image: ImageEncoderConfig,
-                 len_vis_input: int = 256):
+                 len_vis_input: int = 256, task: str = "report_generation",
+                 n_answers: int = 458):
         super().__init__(config, image, len_vis_input)
-        self.cls = nn.ModuleDict({"predictions": MLMHead(
-            config, self.txt_embeddings.word_embeddings)})
+        self.task = task
+        if task == "vqa":
+            self.ans_classifier = VQAHead(config.hidden_size, n_answers)
+        else:
+            self.cls = nn.ModuleDict({"predictions": MLMHead(
+                config, self.txt_embeddings.word_embeddings)})
+
+    def forward(self, image: torch.Tensor, input_ids: torch.Tensor,
+                token_type_ids: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                masked_pos: Optional[torch.Tensor] = None,
+                deterministic: bool = True, train_cnn: bool = False,
+                attention_fn=None, vqa_inference: bool = False,
+                task_idx: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """f32 logits: VQA [B, n_answers]; report generation the MLM logits
+        of the gathered ``masked_pos`` [B, P, V]."""
+        sequence, _ = super().forward(
+            image, input_ids, token_type_ids, bias,
+            deterministic=deterministic, train_cnn=train_cnn,
+            attention_fn=attention_fn, rng=rng)
+        if self.task == "vqa":
+            embed = sequence[:, 0]
+            if vqa_inference:  # CLS * the image segment's SEP
+                embed = embed * sequence[:, self.len_vis_input + 1]
+            return self.ans_classifier(embed)
+        gathered = torch.take_along_dim(
+            sequence, masked_pos.long().unsqueeze(-1), dim=1)
+        return self.cls["predictions"](gathered, task_idx)
 
     def decode_prefill(self, image, input_ids_seg, token_type_ids_seg,
                        kv_caches, bias):

@@ -1,5 +1,6 @@
-"""The optimizer of the pretraining step (medvill_tpu/train/optim.py:46-48,
-219-230,268-295).
+"""The optimizers of the pretraining and finetune steps
+(medvill_tpu/train/optim.py:25-109,219-230,268-295 and
+train/finetune.py:199-208).
 
 - ``adamw``: ``torch.optim.AdamW`` is ``optax.adamw`` here: bias-corrected
   moments, eps added outside the square root, weight decay decoupled from
@@ -14,9 +15,22 @@
   mean of ``every`` micro-batch gradients, applied once; the parameters do
   not move on the other micro-steps, and the Adam step count advances once
   per application.
+- ``BertAdam``: the vendored BertAdam as ``make_finetune_tx`` builds it,
+  applied to the accumulated mean gradient: each tensor's gradient clipped
+  by ``min(1, max_grad_norm / (||g|| + 1e-6))``, Adam without bias
+  correction (``m / (sqrt(v) + eps)``), ``weight_decay * p`` added where
+  ``decay_groups`` decays, all scaled by ``-lr * schedule(k / t_total,
+  warmup)`` for the k-th update (k from 0, so the first update has lr 0).
+  A trainable parameter with no gradient (the pooler, whose output no
+  finetune loss reads) takes a zero one, as JAX's zero cotangent: weight
+  decay still moves it.
+- ``SCHEDULES``: ``warmup_linear`` (decays as ``max((x - 1) / (warmup -
+  1), 0)``), ``warmup_constant``, ``warmup_cosine``
+  (reference: sc/pytorch_pretrained_bert/optimization.py:32-44).
 """
 from __future__ import annotations
 
+import math
 from typing import Iterable, List
 
 import torch
@@ -31,7 +45,102 @@ def adamw(params: Iterable[nn.Parameter], lr: float, b1: float = 0.9,
 
 
 def trainable(model: nn.Module) -> List[nn.Parameter]:
+    """Each trainable parameter once (a tied table is listed once)."""
     return [p for p in model.parameters() if p.requires_grad]
+
+
+def warmup_linear(x: float, warmup: float = 0.002) -> float:
+    return x / warmup if x < warmup else max((x - 1.0) / (warmup - 1.0), 0.0)
+
+
+def warmup_constant(x: float, warmup: float = 0.002) -> float:
+    return x / warmup if x < warmup else 1.0
+
+
+def warmup_cosine(x: float, warmup: float = 0.002) -> float:
+    return x / warmup if x < warmup else 0.5 * (1.0 + math.cos(math.pi * x))
+
+
+SCHEDULES = {
+    "warmup_linear": warmup_linear,
+    "warmup_constant": warmup_constant,
+    "warmup_cosine": warmup_cosine,
+}
+
+
+def decay_groups(model: nn.Module, weight_decay: float) -> List[dict]:
+    """The trainable parameters in two groups: decayed, and exempt (every
+    LayerNorm/BatchNorm parameter and every Linear's bias: JAX's
+    ``no_decay_mask`` over the flax names ``bias``, ``scale`` and
+    ``*LayerNorm*``; reference finetune.py:383-390).
+    The MLM head's free vocabulary bias is flax's ``decoder_bias``, which
+    that mask decays, and decays here too."""
+    exempt = set()
+    for m in model.modules():
+        if isinstance(m, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
+            exempt.update(id(p) for p in m.parameters(recurse=False))
+        elif isinstance(m, nn.Linear) and m.bias is not None:
+            exempt.add(id(m.bias))
+    params = trainable(model)
+    return [{"params": [p for p in params if id(p) not in exempt],
+             "weight_decay": weight_decay},
+            {"params": [p for p in params if id(p) in exempt],
+             "weight_decay": 0.0}]
+
+
+class BertAdam(torch.optim.Optimizer):
+    """See the module docstring.  ``param_groups`` carry their own
+    ``weight_decay`` (``decay_groups``); the moments live in
+    ``state[p]["m"]``/``["v"]`` and ``opt_step`` counts the updates."""
+
+    def __init__(self, params, lr: float, t_total: int, warmup: float = 0.1,
+                 schedule: str = "warmup_linear", b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6,
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+        if schedule not in SCHEDULES:
+            raise ValueError(f"unknown schedule {schedule!r}")
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay))
+        self.t_total = max(1, int(t_total))
+        self.warmup = warmup
+        self.schedule = SCHEDULES[schedule]
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.max_grad_norm = max_grad_norm
+        self.opt_step = 0
+
+    def lr_scale(self) -> float:
+        """``schedule(opt_step / t_total, warmup)`` of the next update."""
+        return self.schedule(self.opt_step / self.t_total, self.warmup)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        scale = self.lr_scale()
+        for group in self.param_groups:
+            params = group["params"]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            if self.max_grad_norm > 0:
+                norms = torch.stack(torch._foreach_norm(grads))
+                clip = torch.clamp(self.max_grad_norm / (norms + 1e-6),
+                                   max=1.0)
+                grads = torch._foreach_mul(grads, list(clip.unbind(0)))
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["m"] = torch.zeros_like(p)
+                    self.state[p]["v"] = torch.zeros_like(p)
+            m = [self.state[p]["m"] for p in params]
+            v = [self.state[p]["v"] for p in params]
+            torch._foreach_mul_(m, self.b1)
+            torch._foreach_add_(m, grads, alpha=1.0 - self.b1)
+            torch._foreach_mul_(v, self.b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1.0 - self.b2)
+            update = torch._foreach_sqrt(v)
+            torch._foreach_add_(update, self.eps)
+            update = torch._foreach_div(m, update)
+            if group["weight_decay"] > 0:
+                torch._foreach_add_(update, params,
+                                    alpha=group["weight_decay"])
+            torch._foreach_add_(params, update, alpha=-group["lr"] * scale)
+        self.opt_step += 1
 
 
 class Accumulate:

@@ -40,9 +40,12 @@ Batch = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    model: CXRBERT
+    """A model (``CXRBERT`` here, ``VLPForPreTraining`` in finetuning), its
+    accumulating optimizer and the micro-steps taken."""
+
+    model: torch.nn.Module
     tx: optim.Accumulate
-    step: int = 0  # micro-steps taken
+    step: int = 0
 
 
 def build_model(cfg: PretrainConfig) -> CXRBERT:

@@ -348,3 +348,118 @@ def test_flash_mha_training_step_on_card(cuda_device):
     want = torch.autograd.grad((ref ** 2).sum(), clones)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+
+
+def _finetune_batch(device, cfg, seed):
+    """Rows in the s2s, bi and bar modes (spec ids 1, 0, 2) with their
+    n_tokens, 3 masked positions each (the last row's third padded)."""
+    gen = torch.Generator().manual_seed(seed)
+    B, L = 3, cfg.max_seq_length
+    spec = torch.tensor([[1, 14], [0, 20], [2, 17]], dtype=torch.int32)
+    pos = torch.tensor([[7, 9, 13], [6, 11, 19], [8, 16, 0]])
+    batch = dict(
+        image=torch.randint(0, 256, (B, 64, 64, 3), generator=gen,
+                            dtype=torch.uint8),
+        input_ids=torch.randint(5, 64, (B, L), generator=gen),
+        segment_ids=torch.tensor([[4] * 6 + [5] * 18, [0] * 6 + [1] * 18,
+                                  [0] * 6 + [1] * 18]),
+        mask_spec=spec, masked_pos=pos,
+        masked_ids=torch.randint(5, 64, (B, 3), generator=gen),
+        masked_weights=torch.tensor([[1.0] * 3, [1.0] * 3, [1.0, 1.0, 0.0]]),
+        task_idx=torch.tensor([3, 0, 3]))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def test_finetune_step_kernels_match_plain_on_card(cuda_device, monkeypatch):
+    """One report-generation micro-step in f32 (2 layers of 2 x 64 heads,
+    24 positions, train-mode BatchNorm, dropout 0.1, label smoothing 0.1)
+    through K1-K4 against the same step with the plain versions swapped in,
+    from the same weights and seeds: 2 K1, 2 K2, 4 K3 and 4 K4 launches;
+    the loss within 1e-4 relative and every gradient within 1e-3 of its
+    tensor's largest entry (a key bias, whose exact gradient is 0, of its
+    layer's key weights'), chip_smoke.py train-parity's f32 tolerances."""
+    from medvill_torch.config import FinetuneConfig
+    from medvill_torch.models import bert as bert_lib
+    from medvill_torch.ops.dropout import DropoutRNG
+    from medvill_torch.train import finetune as tft
+
+    bert = dataclasses.replace(
+        BertConfig.vlp(BertConfig(vocab_size=64, hidden_size=128,
+                                  num_hidden_layers=2, num_attention_heads=2,
+                                  intermediate_size=256,
+                                  compute_dtype="float32")), fused_ln=True)
+    cfg = FinetuneConfig(bert=bert, image=ImageEncoderConfig(
+        img_size=64, num_image_embeds=4, encoder="full-fiber"),
+        len_vis_input=4, max_seq_length=24, max_pred=3, img_size=64)
+    model = tft.build_model(cfg)
+    init_weights(model, 0, initializer_range=0.1)
+    model.to(cuda_device)
+    batch = _finetune_batch(cuda_device, cfg, 0)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+
+    def plain_attention(q, k, v, bias, rng=None, deterministic=True):
+        seed = rng.next_seed()
+        return tfa.attn_fwd_plain(q, k, v, batch["mask_spec"], img_block=6,
+                                  l_real=q.shape[1],
+                                  family=tfa.FAMILY_SEQ2SEQ, rate=0.1,
+                                  seed=seed)[0]
+
+    out = {}
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(buffers[k])
+        if path == "plain":
+            monkeypatch.setattr(bert_lib, "fused_dropout_add_ln",
+                                tfl.fused_dropout_add_ln_plain)
+        before = (tfa.attn_fwd.launches, tfa.attn_bwd.launches,
+                  tfl.fused_ln_fwd.launches, tfl.fused_ln_bwd.launches)
+        loss, _ = tft.finetune_loss_and_metrics(
+            model, batch, DropoutRNG(3, cuda_device), cfg,
+            attention_fn=plain_attention if path == "plain" else None)
+        loss.backward()
+        after = (tfa.attn_fwd.launches, tfa.attn_bwd.launches,
+                 tfl.fused_ln_fwd.launches, tfl.fused_ln_bwd.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [2, 2, 4, 4] if path == "kernel" else [0, 0, 0, 0])
+        out[path] = (loss.item(), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None})
+    (k_loss, k_grads), (p_loss, p_grads) = out["kernel"], out["plain"]
+    assert np.isfinite(k_loss)
+    assert abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)
+    assert k_grads.keys() == p_grads.keys()
+    for name, w in p_grads.items():
+        ref = (p_grads[name[:-len("bias")] + "weight"]
+               if name.endswith("attention.self.key.bias") else w)
+        torch.testing.assert_close(k_grads[name], w, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+
+
+def test_bertadam_on_card_matches_cpu(cuda_device):
+    """Three BertAdam updates (lr 1e-3, t_total 4, both decay groups, one
+    tensor without a gradient) on the card and on the CPU from the same
+    parameters and gradients: within 1e-6."""
+    from medvill_torch.train.optim import BertAdam
+
+    gen = torch.Generator().manual_seed(0)
+    init = [torch.randn(64, 32, generator=gen), torch.randn(32, generator=gen),
+            torch.randn(16, 8, generator=gen)]
+    grads = [[torch.randn(p.shape, generator=gen) * 3 for p in init[:2]]
+             for _ in range(3)]
+    result = []
+    for device in ("cpu", cuda_device):
+        params = [torch.nn.Parameter(p.clone().to(device)) for p in init]
+        opt = BertAdam([{"params": params[:1] + params[2:],
+                         "weight_decay": 0.01},
+                        {"params": params[1:2], "weight_decay": 0.0}],
+                       lr=1e-3, t_total=4, weight_decay=0.01)
+        for step_grads in grads:
+            for p, g in zip(params, step_grads):
+                p.grad = g.to(device)
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+        result.append([p.detach().cpu() for p in params])
+    for a, b in zip(*result):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)

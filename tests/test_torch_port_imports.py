@@ -25,7 +25,9 @@ def test_modules_import_neither_jax_nor_medvill_tpu():
     for name in ("cli.serve_main", "cli.pretrain_main", "ops.fused_ln",
                  "ops.flash_attention", "ops.dropout", "data.masks",
                  "data.pretrain", "data.sampling", "models.joint",
-                 "models.cxrbert", "train.optim", "train.pretrain"):
+                 "models.cxrbert", "train.optim", "train.pretrain",
+                 "cli.finetune_main", "checkpoint", "data.seq2seq",
+                 "data.vqa", "train.finetune", "train.losses"):
         assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -64,6 +66,11 @@ def test_cuda_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pretrain_main.main(["--train_dataset", "t.jsonl", "--vocab_file",
+                            "v.txt"])
+    from medvill_torch.cli import finetune_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune_main.main(["--src_file", "t.jsonl", "--vocab_file",
                             "v.txt"])
 
 

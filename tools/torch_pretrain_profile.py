@@ -1,24 +1,32 @@
-"""Where the time goes in the port's pretraining step on one NVIDIA GPU.
+"""Where the time goes in the port's training step on one NVIDIA GPU:
+pretraining (the default) or report-generation finetuning.
 
-    python tools/torch_pretrain_profile.py [--fused_ln] [--steps 8] \
-        [--table out/torch_pretrain_profile.txt]
+    python tools/torch_pretrain_profile.py [--mode finetune] [--fused_ln] \
+        [--steps 8] [--table out/torch_pretrain_profile.txt]
 
-The configuration of chip_smoke.py's ``train`` phase: PretrainConfig
-defaults (BERT-base, ResNet-50 random-pixel encoder at 512 px with 180 of
-256 fibers, seq_len 253 so L = 436, BAR, batch 36, accumulation 4, AdamW lr
-1e-5), random weights from seed 0, bf16 compute.  It writes chip_smoke.py's
-synthetic vocabulary and records (288 records over 8 shared 512-px PNGs),
-then:
+``--mode pretrain``: the configuration of chip_smoke.py's ``train`` phase:
+PretrainConfig defaults (BERT-base, ResNet-50 random-pixel encoder at 512 px
+with 180 of 256 fibers, seq_len 253 so L = 436, BAR, batch 36, accumulation
+4, AdamW lr 1e-5).  ``--mode finetune``: the finetune CLI's defaults
+(BERT-base VLP, ResNet-50 at 512 px with all 256 fibers, L = 512, s2s
+masks, batch 4, max_pred 128, label smoothing 0.1, BertAdam lr 3e-5 at
+every micro-step).  Random weights from seed 0, bf16 compute.  It writes
+chip_smoke.py's synthetic vocabulary and records (288 records over 8 shared
+512-px PNGs), then:
 
-- loader: the host time per batch of ``BatchLoader`` (4 worker threads,
-  PNG decode, tokenization, masking), alone;
-- step: the host-clock time per micro-step of ``make_train_step`` on one
+- loader: the host time per batch of ``BatchLoader`` (the CLI's worker
+  threads: 4 for pretraining, 1 for finetuning; PNG decode, tokenization,
+  masking), alone;
+- step: the host-clock time per micro-step of the train step on one
   device-resident batch, ``--steps`` micro-steps after two of warmup,
   ending in a sync;
 - profile: ``--steps`` micro-steps under torch.profiler: device busy time,
   idle share (1 - busy / traced wall), kernel launches per micro-step, the
-  device time by kind (K1, K2, K3, K4, GEMM, convolution, AdamW,
-  elementwise/reduction, other) and the top kernels.
+  device time by kind (K1, K2, K3, K4, GEMM, convolution, optimizer
+  (multi-tensor kernels), elementwise/reduction, other), the span of the
+  optimizer's step on the device timeline (its ``Optimizer.step`` range
+  from first kernel to last, gaps included; a span, not busy time, and not
+  in the other sums) and the top kernels.
 
 One JSON line per result; ``--table`` also writes the operator table to
 that file.  Needs a CUDA device.
@@ -39,18 +47,24 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
+from medvill_torch.cli import finetune_main  # noqa: E402
 from medvill_torch.config import BertConfig, PretrainConfig  # noqa: E402
 from medvill_torch.data.pretrain import (BatchLoader,  # noqa: E402
                                          CXRPretrainDataset)
+from medvill_torch.data.seq2seq import Img2TxtDataset  # noqa: E402
 from medvill_torch.data.tokenization import BertTokenizer  # noqa: E402
+from medvill_torch.train import finetune as finetune_lib  # noqa: E402
 from medvill_torch.train import pretrain as pretrain_lib  # noqa: E402
 
+# the device-timeline spans of record_function ranges, left out of the
+# kernel sums
+ANNOTATIONS = ("Optimizer.step#", "ProfilerStep#")
 # kernel-name substrings, first match wins
 KINDS = (("K1", ("attn_fwd_",)),
          ("K2", ("attn_bwd_",)),
          ("K3", ("fused_ln_fwd_kernel",)),
          ("K4", ("fused_ln_bwd_kernel",)),
-         ("adamw", ("multi_tensor", "adam")),
+         ("optimizer", ("multi_tensor", "adam")),
          ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop",
                           "winograd")),
          ("gemm", ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")),
@@ -75,8 +89,33 @@ def _kind(name: str) -> str:
     return "other"
 
 
+def _setup(mode: str, fused_ln: bool, data: str, vocab: str, device):
+    """(dataset, batch size, loader workers, train state, train step,
+    what one example is called) of ``mode``."""
+    if mode == "pretrain":
+        cfg = PretrainConfig(bert=dataclasses.replace(BertConfig(),
+                                                      fused_ln=fused_ln))
+        tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+        return (CXRPretrainDataset(data, tok, cfg, seed=0), cfg.batch_size,
+                cfg.num_workers, pretrain_lib.init_state(cfg, seed=0,
+                                                         device=device),
+                pretrain_lib.make_train_step(cfg), "pairs")
+    args = finetune_main.build_parser().parse_args(
+        ["--src_file", data, "--vocab_file", vocab])
+    cfg = finetune_main.config_from_args(args)
+    cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, fused_ln=fused_ln))
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=True)
+    return (Img2TxtDataset(data, tok, cfg, seed=0), cfg.batch_size,
+            args.num_workers, finetune_lib.init_state(
+                cfg, t_total=1000, seed=0, device=device),
+            finetune_lib.make_train_step(cfg), "reports")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=["pretrain", "finetune"],
+                    default="pretrain")
     ap.add_argument("--fused_ln", action="store_true",
                     help="BertConfig.fused_ln on (K3/K4)")
     ap.add_argument("--steps", type=int, default=8,
@@ -91,29 +130,27 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    cfg = PretrainConfig(bert=dataclasses.replace(BertConfig(),
-                                                  fused_ln=args.fused_ln))
     with tempfile.TemporaryDirectory(prefix="medvill_profile_") as d:
         vocab = os.path.join(d, "vocab.txt")
         chip_smoke.write_vocab(vocab)
         data = chip_smoke.write_train_data(d, vocab)
-        tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
-        loader = BatchLoader(CXRPretrainDataset(data, tok, cfg, seed=0),
-                             cfg.batch_size, shuffle=True, seed=0,
-                             workers=cfg.num_workers)
+        dataset, batch_size, workers, state, step, unit = _setup(
+            args.mode, args.fused_ln, data, vocab, device)
+        loader = BatchLoader(dataset, batch_size, shuffle=True, seed=0,
+                             workers=workers)
         t0 = time.perf_counter()
         batches = list(loader)
         loader_s = time.perf_counter() - t0
         loader.close()
-    print(json.dumps({"what": "loader", "batches": len(batches),
-                      "batch": cfg.batch_size, "workers": cfg.num_workers,
+    print(json.dumps({"what": "loader", "mode": args.mode,
+                      "batches": len(batches), "batch": batch_size,
+                      "workers": workers,
                       "ms_per_batch": loader_s / len(batches) * 1e3}),
           flush=True)
 
     batch = pretrain_lib.to_device(batches[0], device)
-    state = pretrain_lib.init_state(cfg, seed=0, device=device)
-    step = pretrain_lib.make_train_step(cfg)
     gen = torch.Generator().manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         step(state, batch, gen)
     torch.cuda.synchronize()
@@ -122,9 +159,10 @@ def main() -> int:
         step(state, batch, gen)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
-    print(json.dumps({"what": "step", "fused_ln": args.fused_ln,
+    print(json.dumps({"what": "step", "mode": args.mode,
+                      "fused_ln": args.fused_ln,
                       "micro_steps": args.steps, "ms_per_micro_step": step_ms,
-                      "pairs_per_s": cfg.batch_size / step_ms * 1e3,
+                      f"{unit}_per_s": batch_size / step_ms * 1e3,
                       "peak_mem_gib": torch.cuda.max_memory_allocated()
                       / 2 ** 30}), flush=True)
 
@@ -138,11 +176,17 @@ def main() -> int:
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     avgs = prof.key_averages()
-    dev = [e for e in avgs
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    cuda = [e for e in avgs
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
 
     def dev_us(e):
         return _attr(e, "self_device_time_total", "self_cuda_time_total")
+
+    # a record_function range (the optimizer's step) shows on the device
+    # timeline as one span from its first kernel to its last: not a kernel
+    dev = [e for e in cuda if not e.key.startswith(ANNOTATIONS)]
+    optimizer_span_us = sum(dev_us(e) for e in cuda
+                            if e.key.startswith("Optimizer.step#"))
 
     busy_us = sum(dev_us(e) for e in dev)
     by_kind: dict = {}
@@ -154,12 +198,14 @@ def main() -> int:
                                 "cudaLaunchKernelExC"))
     top_dev = sorted(dev, key=lambda e: -dev_us(e))[:15]
     print(json.dumps({
-        "what": "profile", "fused_ln": args.fused_ln,
+        "what": "profile", "mode": args.mode, "fused_ln": args.fused_ln,
         "micro_steps": args.steps, "traced_wall_s": traced,
         "ms_per_micro_step": traced / args.steps * 1e3,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / traced,
         "kernel_launches_per_micro_step": launches / args.steps,
+        "optimizer_step_span_ms_per_micro_step":
+            optimizer_span_us / 1e3 / args.steps,
         "device_ms_per_micro_step_by_kind": {
             k: v / 1e3 / args.steps for k, v in
             sorted(by_kind.items(), key=lambda kv: -kv[1])},
