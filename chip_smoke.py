@@ -129,7 +129,8 @@ import torch
 import torch.nn.functional as F
 
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
-from medvill_torch.cli import finetune_main, pretrain_main, serve_main
+from medvill_torch.cli import (decode_main, finetune_main, pretrain_main,
+                               serve_main)
 from medvill_torch.config import (BertConfig, ImageEncoderConfig, MaskVariant,
                                   PretrainConfig)
 from medvill_torch.convert import load_vlp_checkpoint
@@ -167,6 +168,9 @@ MICRO_STEPS = TRAIN_RECORDS // PRE_B
 # finetuning: the finetune CLI's defaults over the first FT_RECORDS records
 FT_RECORDS = 32
 FT_MICRO_STEPS = FT_RECORDS // FT_B
+# decoding: the decode CLI over the finetune records at batch BATCH, beam 4
+BEAM = 4
+DECODE_BATCHES = -(-FT_RECORDS // BATCH)
 # the K4 instantiation of the training call (bf16, 3 chunks a lane at H 768)
 K4_MAIN = "fused_ln_bwd_kernel<3>[bf16]"
 
@@ -286,13 +290,14 @@ def phase_build() -> dict:
 
 
 def phase_kernel(device) -> dict:
-    """Kernel vs plain at the serve shapes; returns the kernels-line entry
-    (prefill shape, bf16)."""
+    """Kernel vs plain at the serve and decode shapes; returns the bf16
+    records by shape name."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     eps = 1e-5
-    entry = None
+    entries = {}
     for shape_name, rows in (("prefill", BATCH * (VIS + 2)),
-                             ("window", BATCH * 2)):
+                             ("window", BATCH * 2),
+                             ("beam-window", BATCH * BEAM * 2)):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(rows, H, device=device, generator=gen).to(dtype)
             res = torch.randn(rows, H, device=device, generator=gen).to(dtype)
@@ -337,8 +342,8 @@ def phase_kernel(device) -> dict:
                    "bound_by": "bytes" if bytes_ms >= ops_ms else
                    "operations"}
             emit(rec)
-            if shape_name == "prefill" and dtype == torch.bfloat16:
-                entry = rec
+            if dtype == torch.bfloat16:
+                entries[shape_name] = rec
     # dropout: with x = 1, res = 0, gamma = 1, beta = 0 a kept element
     # normalises above zero and a dropped one below, so y > 0 is the mask
     rows, rate, seed = BATCH * (VIS + 2), 0.1, 1234
@@ -366,7 +371,7 @@ def phase_kernel(device) -> dict:
         emit({"phase": "kernel-dropout", "dtype": str(dtype),
               "rate": rate, "mask_equal": True, "keep_fraction": frac,
               "max_abs_err": err})
-    return entry
+    return entries
 
 
 def write_vocab(path: str) -> None:
@@ -1490,6 +1495,159 @@ def phase_finetune_parity(argv: list, device) -> None:
     emit(rec)
 
 
+def _decode_argv(ft_argv: list, d: str, *extra) -> list:
+    """The decode CLI's arguments: its defaults at batch BATCH and
+    T_MAX tokens, fused_ln on, the finetune phase's model.0.bin, the
+    finetune records."""
+    args = finetune_main.build_parser().parse_args(ft_argv)
+    return ["--src_file", args.src_file, "--vocab_file", args.vocab_file,
+            "--model_recover_path",
+            os.path.join(args.output_dir, "model.0.bin"),
+            "--config_path", args.config_path,
+            "--batch_size", str(BATCH), "--max_txt_length", str(T_MAX),
+            "--device", "cuda", *extra]
+
+
+def _beam_leg(argv: list, image, device, compute_dtype: str) -> dict:
+    """beam_search on one batch with fused_ln on (K3) and off (plain), in
+    ``compute_dtype``: {"fused": (ids, scores), "plain": ..., "model": the
+    fused model, "settings": ...}.  The finetune phase's model, a few steps
+    on reports of random words, puts [SEP] first and leaves the other
+    logits nearly flat, so f32 summation noise reorders its top-K: the legs
+    replace its (tied) word embeddings by unit-scale draws from SEED, as
+    tests/torch_port_support.py does, so the vocabulary projection decides,
+    and forbid EOS for the first half of the steps, so they compare long
+    hypotheses."""
+    args = decode_main.build_parser().parse_args(argv)
+    cfg = decode_main.model_config(args)
+    settings = decoder.DecodeSettings(
+        max_txt_length=T_MAX, mask_word_id=4, eos_id=3, beam_size=BEAM,
+        forbid_duplicate_ngrams=True, min_len=T_MAX // 2)
+    out = {}
+    for name, fused in (("fused", True), ("plain", False)):
+        bert = dataclasses.replace(cfg.bert, compute_dtype=compute_dtype,
+                                   fused_ln=fused)
+        model = VLPForPreTraining(bert, cfg.image,
+                                  len_vis_input=cfg.len_vis_input)
+        load_vlp_checkpoint(model, args.model_recover_path)
+        with torch.no_grad():
+            emb = model.txt_embeddings.word_embeddings.weight
+            emb.copy_(torch.randn(emb.shape, generator=torch.Generator()
+                                  .manual_seed(SEED)))
+        model = model.prepare_for_compute().eval().to(device)
+        with torch.inference_mode():
+            out[name] = decoder.beam_search(model, image, settings, 2, 3)
+        if fused:
+            out["model"], out["settings"] = model, settings
+        else:
+            del model
+    return out
+
+
+def _lengths(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
+    """Tokens of each row up to and including its first EOS (all T
+    without one)."""
+    eos = (ids == eos_id).int()
+    return torch.where(eos.any(1), eos.argmax(1) + 1, ids.shape[1])
+
+
+def _rescore(model, image, settings, ids: torch.Tensor) -> torch.Tensor:
+    """Each row's log-probs up to its first EOS (or all T), from
+    teacher-forced greedy decode of its tokens."""
+    with torch.inference_mode():
+        _, _, nll = decoder.greedy_decode(model, image, settings, 2, 3,
+                                          gt_tokens=ids,
+                                          teacher_forcing=True)
+    steps = torch.arange(ids.shape[1], device=ids.device)[None]
+    return -(nll * (steps < _lengths(ids, settings.eos_id)[:, None])).sum(1)
+
+
+def phase_decode(ft_argv: list, d: str, device) -> dict:
+    """The decode CLI at full width: greedy (ppl, BLEU) and beam 4 with
+    n-gram forbidding over the finetune records, each with exactly
+    24 * (1 + T_MAX) K3 launches per batch; then beam search with fused_ln
+    on against off on one batch, f32 (equal ids, scores within 1e-4
+    relative, each score within 1e-3 of its teacher-forced rescoring) and
+    bf16 (rows that agree, finite scores), EOS forbidden for the first
+    T_MAX / 2 steps (_beam_leg).  Returns the K3 launches of the two CLI
+    runs."""
+    runs, total = {}, 0
+    for name, extra in (("greedy", ()),
+                        ("beam4", ("--beam_size", str(BEAM),
+                                   "--forbid_duplicate_ngrams", "true"))):
+        out = os.path.join(d, f"decode_{name}")
+        argv = _decode_argv(ft_argv, d, "--output_dir", out, *extra)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        (result,) = decode_main.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"K1": 0, "K2": 0, "K3": 24 * (1 + T_MAX) * DECODE_BATCHES,
+                "K4": 0}
+        check(counts == want, f"decode {name} launches {counts} != {want}")
+        total += counts["K3"]
+        run = result["run_name"]
+        with open(os.path.join(out, f"{run}_predictions.json")) as f:
+            preds = json.load(f)
+        check(len(preds) == FT_RECORDS and all(
+            isinstance(p["caption"], str) for p in preds),
+            f"decode {name}: {len(preds)} predictions")
+        for f in (f"{run}.csv", f"{run}_gt.csv", "all_results.json"):
+            check(os.path.isfile(os.path.join(out, f)), f"no {f}")
+        check(all(np.isfinite(result[k]) for k in
+                  ("Bleu_1", "Bleu_4", "decode_s")), f"decode {result}")
+        if name == "greedy":
+            check(np.isfinite(result["ppl"]), f"ppl {result}")
+        runs[name] = {
+            "run_name": run, "batches": DECODE_BATCHES,
+            "decode_s": result["decode_s"],
+            "decode_tokens_per_s": result["decode_tokens_per_s"],
+            "wall_s": wall, "bleu": [result[f"Bleu_{n}"] for n in range(1, 5)],
+            "ppl": result.get("ppl"),
+            "empty_captions": sum(not p["caption"] for p in preds),
+            "caption_words": [len(p["caption"].split()) for p in preds[:4]],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "fused_ln_launches": counts["K3"]}
+    argv = _decode_argv(ft_argv, d)
+    image = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, 256, (BATCH, IMG, IMG, 3), dtype=np.uint8)).to(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    legs = {}
+    f32 = _beam_leg(argv, image, device, "float32")
+    (ids, scores), (p_ids, p_scores) = f32["fused"], f32["plain"]
+    differ = (ids != p_ids).nonzero().tolist()
+    check(not differ, f"f32 beam ids: K3 != plain from (row, step) "
+                      f"{differ[:1]}, scores {scores.tolist()} vs "
+                      f"{p_scores.tolist()}")
+    rel = ((scores - p_scores).abs() / p_scores.abs()).max().item()
+    check(rel <= 1e-4, f"f32 beam scores: K3 vs plain relative {rel}")
+    resc = (scores - _rescore(f32["model"], image, f32["settings"],
+                              ids)).abs().max().item()
+    check(resc <= 1e-3, f"f32 beam scores vs rescoring: {resc}")
+    lengths = _lengths(ids, 3)
+    check(bool((lengths > T_MAX // 2).all()), f"f32 beam lengths {lengths}")
+    legs["float32"] = {"ids_equal": True, "score_rel_err": rel,
+                       "rescore_abs_err": resc, "lengths": lengths.tolist(),
+                       "scores": scores.tolist()}
+    del f32
+    bf16 = _beam_leg(argv, image, device, "bfloat16")
+    (ids, scores), (p_ids, p_scores) = bf16["fused"], bf16["plain"]
+    check(bool(torch.isfinite(scores).all() & torch.isfinite(p_scores).all()),
+          "bf16 beam scores not finite")
+    legs["bfloat16"] = {
+        "rows_equal": int((ids == p_ids).all(1).sum().item()),
+        "rows": BATCH, "lengths": _lengths(ids, 3).tolist(),
+        "score_abs_diff": (scores - p_scores).abs().max().item()}
+    del bf16
+    emit({"phase": "decode", "records": FT_RECORDS, "batch": BATCH,
+          "tokens": T_MAX, "beam": BEAM, "runs": runs, "beam_parity": legs,
+          "beam4_over_greedy_tok_s": runs["beam4"]["decode_tokens_per_s"]
+          / runs["greedy"]["decode_tokens_per_s"]})
+    return {"K3": total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -1504,7 +1662,7 @@ def main() -> int:
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
     ptxas = phase_build()
-    entry = phase_kernel(device)
+    k3_shapes = phase_kernel(device)
     entries = phase_kernel_attn(device)
     entries.update(phase_kernel_ln_bwd(device, ptxas))
     with tempfile.TemporaryDirectory(prefix="medvill_smoke_") as d:
@@ -1520,8 +1678,10 @@ def main() -> int:
         finetune_counts = phase_finetune(ft_argv, device)
         phase_finetune_steps(ft_argv, device)
         phase_finetune_parity(ft_argv, device)
+        decode_counts = phase_decode(ft_argv, d, device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
-             "train-fused": fused_counts, "finetune": finetune_counts}
+             "train-fused": fused_counts, "finetune": finetune_counts,
+             "decode": decode_counts}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",
@@ -1539,10 +1699,13 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **entries[kid]})
-    kernels[2]["serve_shape"] = {
-        "max_abs_err": entry["max_abs_err"], "ms": entry["kernel_ms"],
-        "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
-        "library_ms": entry["library_ms"]}
+    for key, shape in (("serve_shape", "prefill"),
+                       ("beam_window_shape", "beam-window")):
+        rec = k3_shapes[shape]
+        kernels[2][key] = {
+            "rows": rec["rows"], "max_abs_err": rec["max_abs_err"],
+            "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "library_ms": rec["library_ms"]}
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,18 @@ def str2bool(v):
     return str(v).lower() in ("1", "true", "yes")
 
 
-def sampling_kwargs(args) -> dict:
+def sampling_kwargs(args, beam_size: int) -> dict:
     """Validated DecodeSettings kwargs for --do_sample/--temperature/
-    --top_k/--top_p, checked at startup so a bad value fails before the
-    first request.  Raises ValueError on out-of-range values and on
-    sampling knobs given without --do_sample."""
+    --top_k/--top_p, shared by the decode and serve CLIs and checked at
+    startup so a bad value fails before the first request.  Raises
+    ValueError on out-of-range values, on sampling knobs given without
+    --do_sample, and on --do_sample with beam search."""
     do_sample, temperature, top_k, top_p = (
         args.do_sample, args.temperature, args.top_k, args.top_p)
+    if do_sample and beam_size > 1:
+        # the reference samples only in its non-beam loop (model.py:1213)
+        raise ValueError("--do_sample requires --beam_size 1 "
+                         "(sampling is a greedy-loop mode, model.py:1213)")
     if not do_sample and (temperature != 1.0 or top_k != 0 or top_p != 1.0):
         raise ValueError(
             "--temperature/--top_k/--top_p require --do_sample")

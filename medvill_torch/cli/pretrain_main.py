@@ -168,10 +168,12 @@ def train(args) -> List[dict]:
         raise ValueError(f"{cfg.train_dataset}: {len(dataset)} records make "
                          f"no batch of {cfg.batch_size}")
     state = init_state(cfg, device=device)
-    if cfg.weight_load and cfg.pre_trained_model_path:
+    restored = bool(cfg.weight_load and cfg.pre_trained_model_path)
+    if restored:
         load_cxrbert_checkpoint(state.model, cfg.pre_trained_model_path)
         logger.info("restored %s", cfg.pre_trained_model_path)
-    if cfg.image.freeze_prefix_stages:
+    if cfg.image.freeze_prefix_stages and not restored:
+        # the checkpoint, when restored, holds the trunk too
         logger.warning("the ResNet trunk is frozen (reference semantics) "
                        "and randomly initialized: no ImageNet weights are "
                        "loaded by the port")

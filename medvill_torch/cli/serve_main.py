@@ -20,7 +20,7 @@ API:
 Checkpoints are torch ``model.{epoch}.bin`` files in the reference layout.
 An orbax directory written by the JAX package is refused; convert it with
 ``python -m medvill_tpu.cli.export_main`` first.  Greedy and sampled decode
-are served; ``--beam_size`` above 1 is refused until beam search is ported.
+are served, and beam search with ``--beam_size`` above 1.
 
 Usage (on the card; ``--device cpu`` runs it on the CPU):
   python -m medvill_torch.cli.serve_main --vocab_file vocab.txt \
@@ -46,7 +46,8 @@ from medvill_torch.config import BertConfig, FinetuneConfig, ImageEncoderConfig
 from medvill_torch.convert import load_vlp_checkpoint
 from medvill_torch.data import images as image_lib
 from medvill_torch.data.tokenization import BertTokenizer, caption_from_ids
-from medvill_torch.models.decoder import DecodeSettings, greedy_decode
+from medvill_torch.models.decoder import (DecodeSettings, beam_search,
+                                          greedy_decode)
 from medvill_torch.models.seq2seq import VLPForPreTraining
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
@@ -68,14 +69,18 @@ def build_parser():
     p.add_argument("--max_wait_ms", type=int, default=25,
                    help="micro-batching window: how long the dispatcher "
                         "waits to fill a batch after the first request")
-    p.add_argument("--beam_size", type=int, default=1,
-                   help="1 only: beam search is not ported yet")
+    p.add_argument("--beam_size", type=int, default=1)
     p.add_argument("--do_sample", type=str2bool, default=False,
-                   help="multinomial sampling instead of argmax; one seeded "
-                        "generator advances across micro-batches")
+                   help="multinomial sampling instead of argmax (requires "
+                        "--beam_size 1); one seeded generator advances "
+                        "across micro-batches")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--top_k", type=int, default=0)
     p.add_argument("--top_p", type=float, default=1.0)
+    p.add_argument("--length_penalty", type=float, default=0.0)
+    p.add_argument("--forbid_duplicate_ngrams", type=str2bool, default=False)
+    p.add_argument("--ngram_size", type=int, default=3)
+    p.add_argument("--min_len", type=int, default=0)
     p.add_argument("--max_txt_length", type=int, default=128)
     p.add_argument("--len_vis_input", type=int, default=256)
     p.add_argument("--img_size", type=int, default=512)
@@ -119,26 +124,30 @@ def model_config(args) -> FinetuneConfig:
                                  encoder="full-fiber"))
 
 
+def recover_model(cfg: FinetuneConfig, path: str, device,
+                  logger) -> VLPForPreTraining:
+    """The VLP model of ``cfg`` with a torch checkpoint's weights, in eval
+    mode on ``device``, its matmul weights in the compute dtype."""
+    model = VLPForPreTraining(cfg.bert, cfg.image,
+                              len_vis_input=cfg.len_vis_input)
+    extra = load_vlp_checkpoint(model, path)
+    if extra:
+        logger.info("checkpoint keys not used by the model: %d (e.g. %s)",
+                    len(extra), extra[:3])
+    return model.prepare_for_compute().eval().to(device)
+
+
 def build_engine(args, logger):
     """Model + recovered weights + the batch decode function.  Returns
     (run(images uint8 [B,H,W,3]) -> ids [B,T], tokenizer,
     reload_weights(path) -> kind)."""
     device = resolve_device(args.device)
-    if args.beam_size > 1:
-        raise ValueError("--beam_size > 1: beam search is not ported to "
-                         "medvill_torch yet (serve with --beam_size 1)")
     set_seed(args.seed)
     tokenizer = BertTokenizer.from_vocab_file(args.vocab_file)
     cfg = model_config(args)
 
     def recover(path: str) -> VLPForPreTraining:
-        model = VLPForPreTraining(cfg.bert, cfg.image,
-                                  len_vis_input=cfg.len_vis_input)
-        extra = load_vlp_checkpoint(model, path)
-        if extra:
-            logger.info("checkpoint keys not used by the model: %d (e.g. %s)",
-                        len(extra), extra[:3])
-        return model.prepare_for_compute().eval().to(device)
+        return recover_model(cfg, path, device, logger)
 
     live = {"model": recover(args.model_recover_path)}
     logger.info("recovered torch checkpoint %s on %s",
@@ -151,9 +160,12 @@ def build_engine(args, logger):
     v = tokenizer.vocab
     settings = DecodeSettings(
         max_txt_length=args.max_txt_length, mask_word_id=v["[MASK]"],
-        eos_id=v["[SEP]"], new_segment_ids=args.new_segment_ids,
-        window_positions=positions,
-        **sampling_kwargs(args))
+        eos_id=v["[SEP]"], beam_size=args.beam_size,
+        length_penalty=args.length_penalty,
+        forbid_duplicate_ngrams=args.forbid_duplicate_ngrams,
+        ngram_size=args.ngram_size, min_len=args.min_len,
+        new_segment_ids=args.new_segment_ids, window_positions=positions,
+        **sampling_kwargs(args, args.beam_size))
     generator = None
     if settings.sample_mode == "sample":
         generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -163,9 +175,13 @@ def build_engine(args, logger):
         # thread that launches the device work
         with torch.inference_mode():
             image = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-            ids, _, _ = greedy_decode(live["model"], image, settings,
-                                      v["[CLS]"], v["[SEP]"],
-                                      generator=generator)
+            if settings.beam_size > 1:
+                ids, _ = beam_search(live["model"], image, settings,
+                                     v["[CLS]"], v["[SEP]"])
+            else:
+                ids, _, _ = greedy_decode(live["model"], image, settings,
+                                          v["[CLS]"], v["[SEP]"],
+                                          generator=generator)
             return ids.cpu().numpy()
 
     def reload_weights(path: str) -> str:

@@ -1,8 +1,8 @@
 """Typed configuration: a torch-free, jax-free copy of the JAX package's
-``MaskVariant``, ``BertConfig``, ``ImageEncoderConfig``, ``PretrainConfig``
-and ``FinetuneConfig`` (medvill_tpu/core/config.py:16-293,360-418), with the
-same fields and defaults so a ``config.json`` or a CLI flag means the same
-thing to both packages.
+``MaskVariant``, ``BertConfig``, ``ImageEncoderConfig``, ``PretrainConfig``,
+``FinetuneConfig`` and ``DecodeConfig`` (medvill_tpu/core/config.py:16-293,
+360-441), with the same fields and defaults so a ``config.json`` or a CLI
+flag means the same thing to both packages.
 
 ``compute_dtype`` names the matmul/conv dtype; LayerNorm, BatchNorm and
 softmax statistics are always f32.  ``remat``/``remat_mode`` (a memory
@@ -296,3 +296,26 @@ class FinetuneConfig:
         default_factory=lambda: ImageEncoderConfig(num_image_embeds=256,
                                                    encoder="full-fiber"))
     use_flash_attention: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeConfig:
+    """Generation decode (reference: sc/generation_decode.py:114-311)."""
+
+    model_recover_path: str = ""
+    src_file: str = ""
+    output_dir: str = "output_decode"
+    batch_size: int = 16
+    beam_size: int = 1
+    length_penalty: float = 0.0
+    forbid_duplicate_ngrams: bool = False
+    forbid_ignore_word: Optional[str] = None
+    ngram_size: int = 3
+    max_txt_length: int = 128   # reference --max_tgt_length
+    len_vis_input: int = 256
+    split: str = "test"
+    seed: int = 123
+    bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    image: ImageEncoderConfig = dataclasses.field(
+        default_factory=lambda: ImageEncoderConfig(num_image_embeds=256,
+                                                   encoder="full-fiber"))

@@ -11,8 +11,8 @@ part of medvill_tpu/data/seq2seq.py; reference: sc/data_loader.py:61-452).
   the 2-D mask as a ``(variant id, n_tokens)`` spec.
 
 From the same records, tokenizer, config and seed the examples equal the
-JAX package's byte for byte.  The decode-time preprocessor and the resume
-replay (``fetch(load_image=False)``) are not ported.
+JAX package's byte for byte.  ``Seq2seqDecodePreprocessor`` is the decode
+CLI's.  The resume replay (``fetch(load_image=False)``) is not ported.
 """
 from __future__ import annotations
 
@@ -166,3 +166,27 @@ class Img2TxtDataset:
         out = proc(tokens_b, rng=rng)
         out["image"] = image_lib.as_wire_image(self.image_loader(rec["img"]))
         return out
+
+
+class Seq2seqDecodePreprocessor:
+    """Decode-time preprocessing (reference: Preprocess4Seq2seqDecoder,
+    sc/data_loader.py:455-541): the image in the wire format and the
+    ground-truth ids cut or zero-padded to ``max_txt_length``, for
+    teacher forcing and ppl."""
+
+    def __init__(self, cfg: FinetuneConfig, tokenizer,
+                 max_txt_length: int = 128):
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.max_txt_length = max_txt_length
+
+    def __call__(self, img_path: str, original_text: str,
+                 image_loader) -> Dict[str, np.ndarray]:
+        gt_ids = self.tokenizer.convert_tokens_to_ids(
+            self.tokenizer.tokenize(original_text))
+        del gt_ids[self.max_txt_length:]
+        gt_ids += [0] * (self.max_txt_length - len(gt_ids))
+        return dict(
+            image=image_lib.as_wire_image(image_loader(img_path)),
+            gt_token=np.array(gt_ids, np.int32),
+        )

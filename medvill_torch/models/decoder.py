@@ -1,5 +1,5 @@
-"""Autoregressive report generation: greedy and sampled decode
-(medvill_tpu/models/decoder.py:49-431).
+"""Autoregressive report generation: greedy, sampled and beam decode
+(medvill_tpu/models/decoder.py).
 
 The UniLM [MASK]-probe scheme with a true per-layer K/V cache: one prefill
 of the image segment, then per text step t a 2-position window (the
@@ -7,7 +7,13 @@ previously committed token, a [MASK] probe) whose logits pick token t.  The
 JAX package runs the steps as a ``lax.fori_loop`` and the layers as a scan or
 unrolled program; here both are plain Python loops over eager ops (the
 scan/unrolled split was a compile-time device with no counterpart).
-``beam_search`` is not ported yet.
+
+``beam_search`` keeps the JAX scoring (reference model.py:1239-1487): a
+-10000 penalty on every continuation of a beam whose last token was EOS,
+EOS set to -10000 before ``min_len``, duplicate-ngram forbidding with an
+ignore set, the additive length penalty, and the answer as the best over
+every EOS event and the last frame's beams.  Its top-K is a stable sort,
+so equal scores go to the lower flat index first, as ``lax.top_k`` does.
 
 Decode-time geometry (sc/data_loader.py:476-528): token types 4 (image
 segment) / 5 (text) under new_segment_ids; ``DecodeSettings.
@@ -31,7 +37,15 @@ class DecodeSettings:
     max_txt_length: int = 128
     mask_word_id: int = 103      # [MASK]
     eos_id: int = 102            # [SEP]
+    beam_size: int = 1
+    # ADDITIVE per-length bonus: score + length_penalty * n_tokens
+    length_penalty: float = 0.0
+    forbid_duplicate_ngrams: bool = False
+    ngram_size: int = 3
+    min_len: int = 0
     new_segment_ids: bool = True
+    # vocab ids exempt from ngram forbidding (a tuple, for hashability)
+    forbid_ignore_ids: tuple = ()
     # 'greedy' argmax | 'sample' multinomial over the filtered softmax
     sample_mode: str = "greedy"
     temperature: float = 1.0
@@ -123,6 +137,37 @@ def _sep_last_ids(cls_id: int, sep_id: int, B: int, vis: int,
     return ids
 
 
+def _prefill(model: VLPForPreTraining, image: torch.Tensor,
+             settings: DecodeSettings, cls_id: int, sep_id: int,
+             L: int) -> list:
+    """Per-layer K/V caches [B, L, heads, dim] with the image segment
+    encoded at [0, vis)."""
+    device = image.device
+    B, vis = image.shape[0], model.len_vis_input + 2
+    caches = model.init_kv_caches(B, L, device)
+    seg_ids = _sep_last_ids(cls_id, sep_id, B, vis, device)
+    seg_types = torch.full((B, vis), settings.img_type_id, dtype=torch.long,
+                           device=device)
+    model.decode_prefill(image, seg_ids, seg_types, caches,
+                         _prefill_bias(vis, L, device))
+    return caches
+
+
+def _window_inputs(settings: DecodeSettings, vis: int, T: int, device
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every step's window positions and token types, [T, 2] each, in one
+    host->device copy apiece: a copy from pageable host memory synchronises
+    the stream, so one per step would stall the host on the device at
+    every window."""
+    positions = torch.cat([_window_positions(settings, vis, t, 1, "cpu")
+                           for t in range(T)]).to(device)
+    txt_type = settings.txt_type_id
+    types = torch.tensor(
+        [[settings.img_type_id if t == 0 else txt_type, txt_type]
+         for t in range(T)]).to(device)
+    return positions, types
+
+
 def greedy_decode(model: VLPForPreTraining, image: torch.Tensor,
                   settings: DecodeSettings, cls_id: int, sep_id: int,
                   gt_tokens: Optional[torch.Tensor] = None,
@@ -148,13 +193,7 @@ def greedy_decode(model: VLPForPreTraining, image: torch.Tensor,
     L = vis + T + 1
     B = image.shape[0]
 
-    caches = model.init_kv_caches(B, L, device)
-    seg_ids = _sep_last_ids(cls_id, sep_id, B, vis, device)
-    seg_types = torch.full((B, vis), settings.img_type_id, dtype=torch.long,
-                           device=device)
-    model.decode_prefill(image, seg_ids, seg_types, caches,
-                         _prefill_bias(vis, L, device))
-
+    caches = _prefill(model, image, settings, cls_id, sep_id, L)
     if gt_tokens is None:
         gt_tokens = torch.zeros(B, T, dtype=torch.long, device=device)
     gt_tokens = gt_tokens.long()
@@ -165,15 +204,7 @@ def greedy_decode(model: VLPForPreTraining, image: torch.Tensor,
                           device=device)
     # committed slot token: step 0 re-encodes the segment [SEP]
     committed = torch.full((B,), sep_id, dtype=torch.long, device=device)
-    # every step's positions and types in one host->device copy: a copy
-    # from pageable host memory synchronises the stream, so one per step
-    # would stall the host on the device at every window
-    positions = torch.cat([_window_positions(settings, vis, t, 1, "cpu")
-                           for t in range(T)]).to(device)
-    txt_type = settings.txt_type_id
-    types_all = torch.tensor(
-        [[settings.img_type_id if t == 0 else txt_type, txt_type]
-         for t in range(T)]).to(device)
+    positions, types_all = _window_inputs(settings, vis, T, device)
     for t in range(T):
         window_ids = torch.stack([committed, mask_col], dim=1)
         pos = positions[t].expand(B, 2)
@@ -196,3 +227,132 @@ def greedy_decode(model: VLPForPreTraining, image: torch.Tensor,
         gt_nll[:, t] = -torch.gather(logp, 1, gt_t[:, None])[:, 0]
         committed = gt_t if teacher_forcing else next_tok
     return out_ids, out_logp, gt_nll
+
+
+def _top_k(flat: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest entries of each row, equal
+    values in ascending index order, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order among ties, and bf16 logits cast to
+    f32 tie often)."""
+    values, indices = torch.sort(flat, dim=-1, descending=True, stable=True)
+    return values[:, :k], indices[:, :k]
+
+
+def _gather_beams(x: torch.Tensor, parent: torch.Tensor, B: int,
+                  K: int) -> torch.Tensor:
+    """Rows of ``x`` [B*K, ...] picked by the per-(B, K) parent beam."""
+    flat = (torch.arange(B, device=x.device)[:, None] * K
+            + parent).reshape(-1)
+    return x.index_select(0, flat)
+
+
+def _ngram_forbid_mask(out_ids: torch.Tensor, t: int, n: int, vocab: int,
+                       ignore_ids: tuple = ()) -> torch.Tensor:
+    """[BK, V] additive mask (-10000 where forbidden) for the tokens that
+    would complete an n-gram already in ``out_ids[:, :t]`` (reference
+    model.py:1387-1404, 1289-1290).  A row forbids nothing when one of its
+    n-1 context tokens is in ``ignore_ids``, and ids in the set are never
+    forbidden.  The forbidden next-tokens are scattered into zeros, where
+    the JAX version sums a [BK, T, V] one-hot."""
+    BK = out_ids.shape[0]
+    forbid = torch.zeros(BK, vocab + 1, dtype=torch.bool,
+                         device=out_ids.device)
+    if t >= n:
+        grams = out_ids[:, :t].unfold(1, n, 1)          # [BK, t-n+1, n]
+        ctx = out_ids[:, t - n + 1:t]                    # [BK, n-1]
+        match = (grams[..., :n - 1] == ctx[:, None, :]).all(-1)
+        # unmatched grams write to the spare column V; every write stores
+        # True, so the order of duplicate writes does not matter
+        nxt = torch.where(match, grams[..., n - 1], vocab)
+        forbid.scatter_(1, nxt, True)
+        if ignore_ids:
+            ign = torch.zeros(vocab, dtype=torch.bool, device=out_ids.device)
+            ign[list(ignore_ids)] = True
+            forbid[:, :vocab] &= ~ign[ctx].any(1, keepdim=True) & ~ign
+    return torch.where(forbid[:, :vocab], NEG, 0.0)
+
+
+def beam_search(model: VLPForPreTraining, image: torch.Tensor,
+                settings: DecodeSettings, cls_id: int, sep_id: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (best_ids [B, T] long, best_scores [B] f32), as the JAX
+    ``beam_search`` scores them (reference model.py:1239-1487):
+
+    - a beam whose last token was EOS keeps expanding, each continuation
+      carrying -10000 (no hard freeze);
+    - while ``t < min_len`` the EOS log-prob is set to -10000;
+    - an EOS event at step t scores ``cum_logp + length_penalty * (t+1)``;
+    - at t == 0 the K beams are one, so only beam 0 is kept (-1e30, never
+      -inf, for the others);
+    - the answer is the best over every EOS event and the last frame's K
+      beams, replaced only on a strict ``>``.
+
+    The image segment is prefilled at batch B and its caches repeated to
+    B*K rows (row b*K + k belongs to image b); each step gathers the caches
+    and the partial sequences by parent beam, so no traceback is needed."""
+    device = image.device
+    vis = model.len_vis_input + 2
+    T, K = settings.max_txt_length, settings.beam_size
+    L = vis + T + 1
+    B = image.shape[0]
+    BK = B * K
+    V = model.config.vocab_size
+    eos = settings.eos_id
+    NEG_INIT = -1e30  # "no candidate yet"; not -inf, to keep sums finite
+
+    caches = [(k.repeat_interleave(K, 0), v.repeat_interleave(K, 0))
+              for k, v in _prefill(model, image, settings, cls_id, sep_id,
+                                   L)]
+    positions, types_all = _window_inputs(settings, vis, T, device)
+    penalty = torch.tensor(settings.length_penalty, device=device)
+    rows = torch.arange(B, device=device)
+    mask_col = torch.full((BK,), settings.mask_word_id, dtype=torch.long,
+                          device=device)
+    committed = torch.full((BK,), sep_id, dtype=torch.long, device=device)
+    out_ids = torch.zeros(BK, T, dtype=torch.long, device=device)
+    scores = torch.zeros(BK, device=device)
+    last_eos = torch.zeros(BK, device=device)
+    best_score = torch.full((B,), NEG_INIT, device=device)
+    best_ids = torch.zeros(B, T, dtype=torch.long, device=device)
+    for t in range(T):
+        window_ids = torch.stack([committed, mask_col], dim=1)
+        logits, caches = model.decode_step(
+            window_ids, positions[t].expand(BK, 2),
+            types_all[t].expand(BK, 2), caches, vis - 1 + t,
+            _window_bias(vis, t, L, device))
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        if settings.forbid_duplicate_ngrams:
+            logp = logp + _ngram_forbid_mask(out_ids, t, settings.ngram_size,
+                                             V, settings.forbid_ignore_ids)
+        if t < settings.min_len:
+            logp[:, eos] = NEG
+        total = (scores.view(B, K, 1) + logp.view(B, K, V)
+                 + (NEG * last_eos).view(B, K, 1))
+        if t == 0:
+            total[:, 1:] = NEG_INIT
+        top_scores, top_idx = _top_k(total.view(B, K * V), K)
+        parent = torch.div(top_idx, V, rounding_mode="floor")
+        token = top_idx % V
+        caches = [(_gather_beams(k, parent, B, K),
+                   _gather_beams(v, parent, B, K)) for k, v in caches]
+        out_ids = _gather_beams(out_ids, parent, B, K)
+        committed = token.reshape(-1)
+        out_ids[:, t] = committed
+        ev_score = torch.where(token == eos, top_scores + penalty * (t + 1),
+                               NEG_INIT)                       # [B, K]
+        k_ev = torch.argmax(ev_score, dim=1)
+        cand_score = ev_score[rows, k_ev]
+        better = cand_score > best_score
+        best_score = torch.where(better, cand_score, best_score)
+        best_ids = torch.where(better[:, None],
+                               out_ids.view(B, K, T)[rows, k_ev], best_ids)
+        last_eos = (committed == eos).float()
+        scores = top_scores.reshape(-1)
+    fin = scores.view(B, K) + settings.length_penalty * float(T)
+    k_fin = torch.argmax(fin, dim=1)
+    fin_score = fin[rows, k_fin]
+    better = fin_score > best_score
+    best_score = torch.where(better, fin_score, best_score)
+    best_ids = torch.where(better[:, None], out_ids.view(B, K, T)[rows, k_fin],
+                           best_ids)
+    return best_ids, best_score

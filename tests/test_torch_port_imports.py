@@ -27,7 +27,9 @@ def test_modules_import_neither_jax_nor_medvill_tpu():
                  "data.pretrain", "data.sampling", "models.joint",
                  "models.cxrbert", "train.optim", "train.pretrain",
                  "cli.finetune_main", "checkpoint", "data.seq2seq",
-                 "data.vqa", "train.finetune", "train.losses"):
+                 "data.vqa", "train.finetune", "train.losses",
+                 "cli.decode_main", "eval.bleu", "eval.caption_metrics",
+                 "eval.meteor", "eval.chexpert", "eval.lang_utils"):
         assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -72,6 +74,11 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune_main.main(["--src_file", "t.jsonl", "--vocab_file",
                             "v.txt"])
+    from medvill_torch.cli import decode_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        decode_main.main(["--src_file", "t.jsonl", "--vocab_file", "v.txt",
+                          "--model_recover_path", "m.bin"])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -241,3 +241,32 @@ def test_pretrain_cli_end_to_end_on_cpu(tmp_path):
         pretrain_main.build_parser().parse_args(argv + ["--profile_dir", "x"])
     args = pretrain_main.build_parser().parse_args(argv[:-4])
     assert args.device == "cuda"
+
+
+TRUNK_WARNING = "randomly initialized"
+
+
+@pytest.mark.parametrize("weight_load", [False, True],
+                         ids=["random-trunk", "restored"])
+def test_pretrain_cli_warns_of_a_random_trunk_only_without_a_restore(
+        tmp_path, caplog, weight_load):
+    """The frozen trunk is reported random unless --weight_load restored it
+    from --pre_trained_model_path (medvill_tpu/cli/pretrain_main.py:
+    233-243)."""
+    data, vocab = _write_dataset(str(tmp_path), n=2)
+    argv = ["--train_dataset", data, "--vocab_file", vocab,
+            "--output_path", str(tmp_path / "run"), "--bert_model",
+            "test-tiny", "--vocab_size", "64", "--img_size", "64",
+            "--num_image_embeds", "3", "--seq_len", "12", "--batch_size",
+            "2", "--epochs", "1", "--device", "cpu"]
+    if weight_load:
+        cfg = pretrain_main.config_from_args(
+            pretrain_main.build_parser().parse_args(argv))
+        ckpt = str(tmp_path / "pretrained.bin")
+        torch.save(tpre.build_model(cfg).state_dict(), ckpt)
+        argv += ["--weight_load", "true", "--pre_trained_model_path", ckpt]
+    with caplog.at_level("INFO", logger="medvill_torch"):
+        rows = pretrain_main.main(argv)
+    assert len(rows) == 1 and np.isfinite(rows[0]["avg_loss"])
+    assert ("restored" in caplog.text) == weight_load
+    assert (TRUNK_WARNING in caplog.text) != weight_load

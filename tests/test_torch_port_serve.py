@@ -163,7 +163,7 @@ def test_top1_sampling_engine_equals_greedy(served):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (("--beam_size", "2"), "beam search"),
+    (("--beam_size", "2", "--do_sample", "true"), "requires --beam_size 1"),
     (("--top_k", "5"), "require --do_sample"),
     (("--do_sample", "true", "--top_p", "0"), "top_p"),
 ], ids=["beam", "knob-without-sampling", "bad-top-p"])

@@ -1,16 +1,20 @@
-"""Where the time goes in the port's greedy decode on one NVIDIA GPU.
+"""Where the time goes in the port's greedy or beam decode on one NVIDIA GPU.
 
     python tools/torch_serve_profile.py [--batch 8] [--steps 128] \
+        [--beam_size 4 --forbid_duplicate_ngrams true --min_len 0] \
         [--table out/torch_serve_profile.txt]
 
 Builds the serving model of chip_smoke.py (BERT-base VLP + ResNet-50 at
 512 px, random weights from seed 0, bf16 compute, fused LN on), decodes one
 batch to warm up, then:
 
-- times one full greedy decode by the host clock (ending in a sync);
+- times one full decode (greedy, or beam search with ``--beam_size`` above
+  1) by the host clock, ending in a sync: host ms per window step;
 - traces one decode with torch.profiler and prints the device busy time,
-  the idle share (1 - busy / traced wall), the kernel launch count, and the
-  top operators by device and by host time;
+  the idle share (1 - busy / traced wall), the kernel launch count, device
+  ms per window step by kind (GEMM, K3, gather, sort/top-K,
+  elementwise/reduction, ...), and the top operators by device and by
+  host time;
 - times the fused-LN wrapper per call on the host (checks + launch) against
   the bare ctypes launch, at the decode window shape.
 
@@ -32,11 +36,32 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from medvill_torch.cli import str2bool  # noqa: E402
 from medvill_torch.config import BertConfig, ImageEncoderConfig  # noqa: E402
 from medvill_torch.models import decoder  # noqa: E402
 from medvill_torch.models.seq2seq import (VLPForPreTraining,  # noqa: E402
                                           init_weights)
 from medvill_torch.ops import fused_ln  # noqa: E402
+
+
+# kernel-name substrings, first match wins
+KINDS = (("K3", ("fused_ln_fwd_kernel",)),
+         ("convolution", ("conv", "cudnn", "implicit_gemm", "xmma_fprop",
+                          "winograd")),
+         ("gemm", ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")),
+         ("sort/top-K", ("sort", "radix", "topk", "scan")),
+         ("gather", ("index", "gather", "scatter")),
+         ("elementwise/reduction", ("elementwise", "reduce", "vectorized",
+                                    "softmax", "norm", "copy", "fill", "cat",
+                                    "where")))
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
 
 
 def _attr(evt, *names):
@@ -50,6 +75,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=128)
+    ap.add_argument("--beam_size", type=int, default=1)
+    ap.add_argument("--forbid_duplicate_ngrams", type=str2bool,
+                    default=False)
+    ap.add_argument("--min_len", type=int, default=0)
     ap.add_argument("--table", type=str, default=None,
                     help="file for the full torch.profiler operator table")
     args = ap.parse_args()
@@ -69,19 +98,30 @@ def main() -> int:
     model = model.prepare_for_compute().eval().to(device)
     image = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (args.batch, 512, 512, 3), dtype=np.uint8)).to(device)
-    settings = decoder.DecodeSettings(max_txt_length=args.steps,
-                                      mask_word_id=103, eos_id=102)
+    settings = decoder.DecodeSettings(
+        max_txt_length=args.steps, mask_word_id=103, eos_id=102,
+        beam_size=args.beam_size,
+        forbid_duplicate_ngrams=args.forbid_duplicate_ngrams,
+        min_len=args.min_len)
+    what = "beam_search" if args.beam_size > 1 else "greedy_decode"
 
     def run():
         with torch.inference_mode():
-            ids, _, _ = decoder.greedy_decode(model, image, settings, 101, 102)
+            if args.beam_size > 1:
+                ids, _ = decoder.beam_search(model, image, settings, 101, 102)
+            else:
+                ids, _, _ = decoder.greedy_decode(model, image, settings, 101,
+                                                  102)
         return ids.cpu()
 
     run()
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
-    print(json.dumps({"what": "greedy_decode", "batch": args.batch,
+    print(json.dumps({"what": what, "batch": args.batch,
+                      "beam_size": args.beam_size,
+                      "forbid_duplicate_ngrams":
+                          args.forbid_duplicate_ngrams,
                       "steps": args.steps, "wall_s": wall,
                       "ms_per_step": wall / (args.steps + 1) * 1e3,
                       "tokens_per_s": args.batch * args.steps / wall}),
@@ -99,6 +139,11 @@ def main() -> int:
            if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us = sum(_attr(e, "self_device_time_total", "self_cuda_time_total")
                   for e in dev)
+    by_kind: dict = {}
+    for e in dev:
+        k = _kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + _attr(
+            e, "self_device_time_total", "self_cuda_time_total")
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                 "cudaLaunchKernelExC"))
@@ -111,6 +156,10 @@ def main() -> int:
         "device_idle_share": 1 - busy_us / 1e6 / traced,
         "kernel_launches": launches,
         "launches_per_step": launches / (args.steps + 1),
+        "traced_ms_per_step": traced / (args.steps + 1) * 1e3,
+        "device_ms_per_step_by_kind": {
+            k: v / 1e3 / (args.steps + 1) for k, v in
+            sorted(by_kind.items(), key=lambda kv: -kv[1])},
         "top_device_us": {e.key[:60]: _attr(e, "self_device_time_total",
                                             "self_cuda_time_total")
                           for e in top_dev},
