@@ -102,6 +102,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 12. finetune-parity: train-parity's method on one report-generation step,
    batch 4 (rows s2s, s2s, bi, bar), fused_ln on, dropout 0.1, with the same
    f32 and bf16 legs and tolerances.
+13. decode: the decode CLI over the finetune records at batch 8, 128
+   tokens, greedy and then beam 4 with trigram forbidding, each with
+   exactly 24 * 129 K3 launches per batch; then beam_search on one batch
+   with fused_ln on vs off: f32 ids equal, scores within 1e-4 relative and
+   within 1e-3 of their teacher-forced rescoring in the beam's geometry;
+   bf16 scores finite, the rows that agree reported.
 
 Then the line of kernels (each with its launches by path and, beside the
 training shape's figures, its figures at the finetune shape), and last
@@ -1552,8 +1558,46 @@ def _lengths(ids: torch.Tensor, eos_id: int) -> torch.Tensor:
 
 
 def _rescore(model, image, settings, ids: torch.Tensor) -> torch.Tensor:
-    """Each row's log-probs up to its first EOS (or all T), from
-    teacher-forced greedy decode of its tokens."""
+    """Each row's log-probs up to its first EOS (or all T), teacher-forced
+    in the beam's own geometry: the image prefilled at batch B, its caches
+    repeated to B*K rows, every window step at B*K rows with each row's
+    tokens in its K copies, the log-probs added step by step in f32 as the
+    beam adds them.  [B, K], one column per copy.  At other row counts the
+    card's f32 GEMMs reduce in another order, so each log-prob moves by a
+    few ulp of the logits and a sum of 128 of them by about the 1e-3
+    limit (reported as ``rescore_abs_err_batch_b``, not gated)."""
+    K, T = settings.beam_size, settings.max_txt_length
+    device, B = image.device, image.shape[0]
+    vis = model.len_vis_input + 2
+    L = vis + T + 1
+    BK = B * K
+    rows = ids.repeat_interleave(K, 0)
+    live = (torch.arange(T, device=device)[None]
+            < _lengths(rows, settings.eos_id)[:, None])
+    with torch.inference_mode():
+        caches = [(k.repeat_interleave(K, 0), v.repeat_interleave(K, 0))
+                  for k, v in decoder._prefill(model, image, settings, 2, 3,
+                                               L)]
+        positions, types = decoder._window_inputs(settings, vis, T, device)
+        mask_col = torch.full((BK,), settings.mask_word_id, dtype=torch.long,
+                              device=device)
+        committed = torch.full((BK,), 3, dtype=torch.long, device=device)
+        score = torch.zeros(BK, device=device)
+        for t in range(T):
+            logits, caches = model.decode_step(
+                torch.stack([committed, mask_col], dim=1),
+                positions[t].expand(BK, 2), types[t].expand(BK, 2), caches,
+                vis - 1 + t, decoder._window_bias(vis, t, L, device))
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            committed = rows[:, t]
+            score = torch.where(live[:, t], score + logp.gather(
+                1, committed[:, None])[:, 0], score)
+    return score.view(B, K)
+
+
+def _rescore_batch_b(model, image, settings, ids: torch.Tensor
+                     ) -> torch.Tensor:
+    """The same sums from teacher-forced greedy decode at batch B."""
     with torch.inference_mode():
         _, _, nll = decoder.greedy_decode(model, image, settings, 2, 3,
                                           gt_tokens=ids,
@@ -1567,7 +1611,8 @@ def phase_decode(ft_argv: list, d: str, device) -> dict:
     n-gram forbidding over the finetune records, each with exactly
     24 * (1 + T_MAX) K3 launches per batch; then beam search with fused_ln
     on against off on one batch, f32 (equal ids, scores within 1e-4
-    relative, each score within 1e-3 of its teacher-forced rescoring) and
+    relative, each score within 1e-3 of its teacher-forced rescoring in
+    the beam's geometry, _rescore) and
     bf16 (rows that agree, finite scores), EOS forbidden for the first
     T_MAX / 2 steps (_beam_leg).  Returns the K3 launches of the two CLI
     runs."""
@@ -1623,13 +1668,17 @@ def phase_decode(ft_argv: list, d: str, device) -> dict:
                       f"{p_scores.tolist()}")
     rel = ((scores - p_scores).abs() / p_scores.abs()).max().item()
     check(rel <= 1e-4, f"f32 beam scores: K3 vs plain relative {rel}")
-    resc = (scores - _rescore(f32["model"], image, f32["settings"],
-                              ids)).abs().max().item()
+    resc = (scores[:, None] - _rescore(f32["model"], image, f32["settings"],
+                                       ids)).abs().max().item()
     check(resc <= 1e-3, f"f32 beam scores vs rescoring: {resc}")
+    resc_b = (scores - _rescore_batch_b(f32["model"], image, f32["settings"],
+                                        ids)).abs().max().item()
     lengths = _lengths(ids, 3)
     check(bool((lengths > T_MAX // 2).all()), f"f32 beam lengths {lengths}")
     legs["float32"] = {"ids_equal": True, "score_rel_err": rel,
-                       "rescore_abs_err": resc, "lengths": lengths.tolist(),
+                       "rescore_abs_err": resc,
+                       "rescore_abs_err_batch_b": resc_b,
+                       "lengths": lengths.tolist(),
                        "scores": scores.tolist()}
     del f32
     bf16 = _beam_leg(argv, image, device, "bfloat16")
