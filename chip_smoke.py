@@ -50,7 +50,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    kernels' times at rate 0 (the library's conditions) and the f32
    kernels' times.  Then K1/K2 at the finetune step's call (B = 4, L =
    512, s2s, bf16, rate 0.1): against the plain versions, and timed beside
-   their plain versions and the library.
+   their plain versions and the library.  Then at the classification
+   step's call (B = 56, L = 258 + 256 = 514, FULL, img_block 258, text
+   lengths 1..256): against the plain versions in f32 and bf16 at rates 0
+   and 0.1, the skipped tile pairs read back and equal to the predicate,
+   and timed (bf16, rate 0.1) beside the bound, the plain versions and the
+   library.
 6. kernel-ln-bwd: the fused-LN backward K4 against its plain version and
    against autograd through the plain forward, and K3 with dropout 0.1,
    at the training shape R = 36 * 436 = 15696, H = 768, f32 and bf16,
@@ -108,9 +113,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    with fused_ln on vs off: f32 ids equal, scores within 1e-4 relative and
    within 1e-3 of their teacher-forced rescoring in the beam's geometry;
    bf16 scores finite, the rows that agree reported.
+14. classify: python -m medvill_torch.cli.classification_main's entry
+   point at its defaults (BERT-base, the ResNet-50 trunk trained at 512 px
+   with 256 fibers, FULL over L = 514, batch 56, weighted BCE, BertAdam lr
+   1e-4 with warmup and the plateau scale) on a synthetic fixture over the
+   14 CheXpert labels (2 train batches, one valid and one test batch,
+   reports of 20-300 words), --loaddir the train phase's checkpoints, one
+   epoch and --do_test: every shared enc.* tensor merged; exactly 12 K1 +
+   12 K2 launches per micro-step and 12 K1 per eval batch, no K3/K4; a
+   finite loss; finite F1 and AUROC (nan only for a class with one label
+   value in the split); the CSV, model.0.bin (the MMBT layout) and
+   model.best.bin written; examples/s and peak memory.
+15. clf-steps: the classification step on one device-resident batch of
+   56: steady ms per micro-step with fused_ln off and on (with it 24 K3 +
+   24 K4 launches per micro-step) and peak memory; then train-parity's f32
+   leg on one step at batch 4 with the trunk trained.
 
 Then the line of kernels (each with its launches by path and, beside the
-training shape's figures, its figures at the finetune shape), and last
+training shape's figures, its figures at the finetune shape and K1/K2's at
+the classification shape), and last
 {"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
@@ -135,13 +156,17 @@ import torch
 import torch.nn.functional as F
 
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
-from medvill_torch.cli import (decode_main, finetune_main, pretrain_main,
-                               serve_main)
+from medvill_torch.cli import (classification_main, decode_main,
+                               finetune_main, pretrain_main, serve_main)
 from medvill_torch.config import (BertConfig, ImageEncoderConfig, MaskVariant,
                                   PretrainConfig)
 from medvill_torch.convert import load_vlp_checkpoint
 from medvill_torch.data import images as image_lib
 from medvill_torch.data import masks
+from medvill_torch.data.classification import (ClassificationDataset,
+                                               get_labels_and_frequencies,
+                                               pos_weights,
+                                               synthetic_clf_records)
 from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
                                          collate)
 from medvill_torch.data.seq2seq import Img2TxtDataset, Seq2seqPreprocessor
@@ -149,11 +174,13 @@ from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.data.vqa import VQADataset, synthetic_vqa_entries
 from medvill_torch.models import bert as bert_lib
 from medvill_torch.models import decoder
+from medvill_torch.models.mmbt import full_spec
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
 from medvill_torch.ops import build
 from medvill_torch.ops import flash_attention as fa
 from medvill_torch.ops import fused_ln
 from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.train import classify
 from medvill_torch.train import finetune as finetune_lib
 from medvill_torch.train import pretrain as pretrain_lib
 
@@ -169,6 +196,15 @@ SEED = 0
 PRE_B, PRE_L, PRE_IMG_BLOCK = 36, 253 + 180 + 3, 182
 HEADS, HEAD_DIM = 12, 64
 FT_B, FT_L, FT_IMG_BLOCK = 4, 512, 258   # a finetune shape (seq2seq family)
+# classification: the CLI's defaults (batch 56, 256 full-fiber embeds, text
+# window 512 - 256), FULL spec over L = 258 + 256
+CLF_B, CLF_N = 56, 256
+CLF_IMG_BLOCK, CLF_L = CLF_N + 2, 512 + 2
+CLF_TRAIN_BATCHES, CLF_IMAGES = 2, 8
+CHEXPERT = ("Atelectasis", "Cardiomegaly", "Consolidation", "Edema",
+            "Enlarged Cardiomediastinum", "Fracture", "Lung Lesion",
+            "Lung Opacity", "No Finding", "Pleural Effusion", "Pleural Other",
+            "Pneumonia", "Pneumothorax", "Support Devices")
 TRAIN_RECORDS, TRAIN_IMAGES = 288, 8
 MICRO_STEPS = TRAIN_RECORDS // PRE_B
 # finetuning: the finetune CLI's defaults over the first FT_RECORDS records
@@ -563,38 +599,20 @@ def phase_kernel_attn(device) -> dict:
     main_errs = None
     for shape, B, L, ib, family, variant in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            f32 = dtype == torch.float32
             for rate in (0.0, 0.1):
                 q, k, v, do, spec = _attn_inputs(device, gen, B, L, ib,
                                                  family, variant, dtype)
                 kw = dict(img_block=ib, l_real=L, family=family, rate=rate,
                           seed=17 + variant)
-                o, lse = fa.attn_fwd(q, k, v, spec, **kw)
-                grads = fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
-                torch.cuda.synchronize()
-                want_o, want_lse = fa.attn_fwd_plain(q, k, v, spec, **kw)
-                want = dict(zip(("dq", "dk", "dv"), fa.attn_bwd_plain(
-                    q, k, v, o, do, lse, spec, **kw)))
-                tol = ({"o": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4} if f32
-                       else fa.bf16_tolerances(q, k, v, o, do, lse, spec,
-                                               {"o": want_o, **want}, **kw))
-                what = f"{shape} variant {variant} {dtype} rate {rate}"
-                errs = {"o": max_err(o, want_o, tol["o"], f"K1 o {what}"),
-                        "lse": max_err(lse, want_lse, 1e-4, f"K1 lse {what}")}
-                for name, g in zip(("dq", "dk", "dv"), grads):
-                    errs[name] = max_err(g, want[name], tol[name],
-                                         f"K2 {name} {what}")
-                key = f"{shape}/{str(dtype)[6:]}/rate{rate}"
-                acc = worst.setdefault(key, {})
-                for name, e in errs.items():
-                    acc[name] = max(acc.get(name, 0.0), e)
-                    if name != "lse":  # the largest share of its tolerance
-                        acc[name + "/tol"] = max(acc.get(name + "/tol", 0.0),
-                                                 e / tol[name])
+                errs, tol = _attn_errs(
+                    q, k, v, do, spec, kw,
+                    f"{shape} variant {variant} {dtype} rate {rate}")
+                _worst(worst, f"{shape}/{str(dtype)[6:]}/rate{rate}", errs,
+                       tol)
                 if (shape, variant, dtype, rate) == (
                         "pretrain", int(MaskVariant.BAR), torch.bfloat16, 0.1):
                     main_errs = errs
-                del q, k, v, do, o, lse, grads, want_o, want_lse, want
+                del q, k, v, do
     # the rate-0.1 keep mask read back from K1 in both types: with q = k = 0
     # every cell of a FULL row with all text valid has p = 1/L, and V
     # one-hot over a window of 64 keys makes O[r, d] > 0 iff key c0 + d was
@@ -691,6 +709,7 @@ def phase_kernel_attn(device) -> dict:
           "skips_read_back_equal_predicate": True})
     del q, k, v, do, o, lse
     ft = _finetune_shape_attn(device, gen)
+    mmbt = _mmbt_shape_attn(device, gen)
     k2_err = max(main_errs[n] for n in ("dq", "dk", "dv"))
     return {"K1": {"max_abs_err": main_errs["o"], "ms": t["k1_ms"],
                    "plain_ms": t["k1_plain_ms"], "bound_ms": t["k1_bound_ms"],
@@ -698,7 +717,7 @@ def phase_kernel_attn(device) -> dict:
                    "library_ms": t["k1_library_ms"],
                    "tflops": tflops["k1_tflops"], "f32_ms": t["k1_f32_ms"],
                    "skipped_tile_pairs": skipped_share,
-                   "finetune_shape": ft["K1"]},
+                   "finetune_shape": ft["K1"], "mmbt_shape": mmbt["K1"]},
             "K2": {"max_abs_err": k2_err, "ms": t["k2_ms"],
                    "plain_ms": t["k2_plain_ms"], "bound_ms": t["k2_bound_ms"],
                    "bound_by": t["k2_bound_by"],
@@ -706,7 +725,40 @@ def phase_kernel_attn(device) -> dict:
                    "library_eager_ms": t["k2_library_eager_ms"],
                    "tflops": tflops["k2_tflops"], "f32_ms": t["k2_f32_ms"],
                    "skipped_tile_pairs": skipped_share,
-                   "finetune_shape": ft["K2"]}}
+                   "finetune_shape": ft["K2"], "mmbt_shape": mmbt["K2"]}}
+
+
+def _attn_errs(q, k, v, do, spec, kw: dict, what: str) -> tuple:
+    """K1 and K2 against their plain versions on the same inputs: ({o,
+    lse, dq, dk, dv: max abs err}, {o, dq, dk, dv: tolerance}).  f32: o
+    1e-5, gradients 1e-4 (summation order); bf16: fa.bf16_tolerances; lse
+    1e-4 in both."""
+    o, lse = fa.attn_fwd(q, k, v, spec, **kw)
+    grads = fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.attn_fwd_plain(q, k, v, spec, **kw)
+    want = dict(zip(("dq", "dk", "dv"), fa.attn_bwd_plain(
+        q, k, v, o, do, lse, spec, **kw)))
+    tol = ({"o": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+           if q.dtype == torch.float32
+           else fa.bf16_tolerances(q, k, v, o, do, lse, spec,
+                                   {"o": want_o, **want}, **kw))
+    errs = {"o": max_err(o, want_o, tol["o"], f"K1 o {what}"),
+            "lse": max_err(lse, want_lse, 1e-4, f"K1 lse {what}")}
+    for name, g in zip(("dq", "dk", "dv"), grads):
+        errs[name] = max_err(g, want[name], tol[name], f"K2 {name} {what}")
+    return errs, tol
+
+
+def _worst(worst: dict, key: str, errs: dict, tol: dict) -> None:
+    """Keeps under ``worst[key]`` each tensor's largest error and largest
+    share of its tolerance."""
+    acc = worst.setdefault(key, {})
+    for name, e in errs.items():
+        acc[name] = max(acc.get(name, 0.0), e)
+        if name != "lse":
+            acc[name + "/tol"] = max(acc.get(name + "/tol", 0.0),
+                                     e / tol[name])
 
 
 def _attn_times(q, k, v, do, spec, kw: dict) -> dict:
@@ -774,17 +826,9 @@ def _finetune_shape_attn(device, gen) -> dict:
                                      fa.FAMILY_SEQ2SEQ, 1, torch.bfloat16)
     kw = dict(img_block=FT_IMG_BLOCK, l_real=FT_L, family=fa.FAMILY_SEQ2SEQ,
               rate=0.1, seed=6)
-    o, lse = fa.attn_fwd(q, k, v, spec, **kw)
-    grads = fa.attn_bwd(q, k, v, o, do, lse, spec, **kw)
-    torch.cuda.synchronize()
-    want_o, _ = fa.attn_fwd_plain(q, k, v, spec, **kw)
-    want = dict(zip(("dq", "dk", "dv"), fa.attn_bwd_plain(
-        q, k, v, o, do, lse, spec, **kw)))
-    tol = fa.bf16_tolerances(q, k, v, o, do, lse, spec,
-                             {"o": want_o, **want}, **kw)
-    o_err = max_err(o, want_o, tol["o"], "K1 o finetune shape")
-    g_err = max(max_err(g, want[n], tol[n], f"K2 {n} finetune shape")
-                for n, g in zip(("dq", "dk", "dv"), grads))
+    errs, _ = _attn_errs(q, k, v, do, spec, kw, "finetune shape")
+    o_err = errs["o"]
+    g_err = max(errs[n] for n in ("dq", "dk", "dv"))
     t = _attn_times(q, k, v, do, spec, kw)
     emit({"phase": "kernel-attn", "timed": "finetune B=4 L=512 12x64 bf16 "
                                            "s2s rate 0.1", **t,
@@ -795,6 +839,57 @@ def _finetune_shape_attn(device, gen) -> dict:
                   "bound_by": t[f"{n}_bound_by"],
                   "library_ms": t[f"{n}_library_ms"]}
             for kid, n, err in (("K1", "k1", o_err), ("K2", "k2", g_err))}
+
+
+def _mmbt_shape_attn(device, gen) -> dict:
+    """K1/K2 at the classification step's call (B = 56, L = 258 + 256 =
+    514, FULL, img_block 258, pretrain family: the last tile holds 2 rows
+    and the key tiles of the text padding are skipped) against their plain
+    versions in f32 and bf16 at rates 0 and 0.1 (_attn_errs); the skipped
+    tile pairs read back from the kernels and equal to the predicate; times
+    of the training call (bf16, rate 0.1; _attn_times).  Returns the
+    kernels-line entries."""
+    worst: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            q, k, v, do, spec = _attn_inputs(
+                device, gen, CLF_B, CLF_L, CLF_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+                int(MaskVariant.FULL), dtype)
+            kw = dict(img_block=CLF_IMG_BLOCK, l_real=CLF_L,
+                      family=fa.FAMILY_PRETRAIN, rate=rate, seed=8)
+            errs, tol = _attn_errs(q, k, v, do, spec, kw,
+                                   f"mmbt shape {dtype} rate {rate}")
+            _worst(worst, f"{str(dtype)[6:]}/rate{rate}", errs, tol)
+            del q, k, v, do
+    q, k, v, do, spec = _attn_inputs(device, gen, CLF_B, CLF_L, CLF_IMG_BLOCK,
+                                     fa.FAMILY_PRETRAIN,
+                                     int(MaskVariant.FULL), torch.bfloat16)
+    kw = dict(img_block=CLF_IMG_BLOCK, l_real=CLF_L,
+              family=fa.FAMILY_PRETRAIN, rate=0.1, seed=9)
+    errs, _ = _attn_errs(q, k, v, do, spec, kw, "mmbt shape timed call")
+    want = masks.tile_skip_grid(fa.FAMILY_PRETRAIN, spec, CLF_IMG_BLOCK,
+                                CLF_L, CLF_L, fa.TILE)[:, None].to(device)
+    read = fa.skipped_tiles(q, k, v, do, spec, img_block=CLF_IMG_BLOCK,
+                            l_real=CLF_L, family=fa.FAMILY_PRETRAIN)
+    for name, got in read.items():
+        check(torch.equal(got, want.expand_as(got)),
+              f"mmbt shape: {name} kernel skipped {int(got.sum())} tile "
+              f"pairs, the predicate {int(want.sum()) * HEADS}")
+    skipped = read["fwd"].float().mean().item()
+    t = _attn_times(q, k, v, do, spec, kw)
+    emit({"phase": "kernel-attn", "timed": f"mmbt B={CLF_B} L={CLF_L} 12x64 "
+                                           "bf16 FULL rate 0.1", **t,
+          "cases": 4, "max_abs_err": worst, "skipped_tile_pairs": skipped,
+          "skips_read_back_equal_predicate": True})
+    g_err = max(errs[n] for n in ("dq", "dk", "dv"))
+    return {kid: {"max_abs_err": err, "ms": t[f"{n}_ms"],
+                  "plain_ms": t[f"{n}_plain_ms"],
+                  "bound_ms": t[f"{n}_bound_ms"],
+                  "bound_by": t[f"{n}_bound_by"],
+                  "library_ms": t[f"{n}_library_ms"],
+                  "skipped_tile_pairs": skipped}
+            for kid, n, err in (("K1", "k1", errs["o"]),
+                                ("K2", "k2", g_err))}
 
 
 def _attn_yardstick(device, gen) -> dict:
@@ -1249,12 +1344,14 @@ def _check_parity_legs(legs: dict, rec: dict, phase: str) -> None:
     plain path, and each gradient tensor's largest distance within twice
     the plain path's for that tensor.  Key biases are left out of the
     per-tensor test: their exact gradient is 0 (see _compare_grads), so both
-    distances are rounding noise.  Fills ``rec``."""
+    distances are rounding noise.  ``legs`` may hold the f32 leg alone.
+    Fills ``rec``."""
     # the plain path's own bf16-vs-f32 distance, the bf16 leg's yardstick
     f_loss, f_grads = legs["float32"]["plain"]
-    b_loss, b_grads = legs["bfloat16"]["plain"]
-    floor_name, floor, _ = _compare_grads(b_grads, f_grads)
-    floor_loss = abs(b_loss - f_loss) / abs(f_loss)
+    if "bfloat16" in legs:
+        b_loss, b_grads = legs["bfloat16"]["plain"]
+        floor_name, floor, _ = _compare_grads(b_grads, f_grads)
+        floor_loss = abs(b_loss - f_loss) / abs(f_loss)
     for dt, paths in legs.items():
         (k_loss, k_grads), (p_loss, p_grads) = paths["kernel"], paths["plain"]
         rel = abs(k_loss - p_loss) / abs(p_loss)
@@ -1697,6 +1794,221 @@ def phase_decode(ft_argv: list, d: str, device) -> dict:
     return {"K3": total}
 
 
+def write_clf_data(d: str, vocab: str,
+                   train_batches: int = CLF_TRAIN_BATCHES) -> str:
+    """The classification fixture under ``d/clf_data``: Train.jsonl
+    (``train_batches`` batches of CLF_B), Valid.jsonl and Test.jsonl (one
+    batch each) from ``synthetic_clf_records`` over the 14 CheXpert label
+    names, every label of valid and test also in train; each report 20-300
+    words of the synthetic vocabulary, so ``txt_len`` spans the 256-position
+    text window; CLF_IMAGES shared 512-px PNGs.  Returns the directory."""
+    from PIL import Image
+
+    data = os.path.join(d, "clf_data")
+    os.makedirs(data, exist_ok=True)
+    rng = np.random.default_rng(SEED + 5)
+    for j in range(CLF_IMAGES):
+        Image.fromarray(rng.integers(0, 255, (IMG, IMG), np.uint8),
+                        "L").save(os.path.join(data, f"img{j}.png"),
+                                  format="PNG")
+    with open(vocab) as f:
+        words = [w.strip() for w in f][5:]
+    n_train = train_batches * CLF_B
+    recs = synthetic_clf_records(n_train + 2 * CLF_B, CHEXPERT, seed=SEED)
+    for i, r in enumerate(recs):
+        r["img"] = f"img{i % CLF_IMAGES}.png"
+        r["text"] = " ".join(words[j] for j in rng.integers(
+            0, len(words), int(rng.integers(20, 301))))
+    train_labels, _ = get_labels_and_frequencies(recs[:n_train])
+    for r in recs[n_train:]:
+        check(set(r["label"].split(", ")) <= set(train_labels),
+              f"record {r['id']}'s labels are not all in train")
+    for name, part in (("Train", recs[:n_train]),
+                       ("Valid", recs[n_train:n_train + CLF_B]),
+                       ("Test", recs[n_train + CLF_B:])):
+        with open(os.path.join(data, f"{name}.jsonl"), "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in part)
+    return data
+
+
+def _clf_argv(d: str, vocab: str, data: str) -> list:
+    """The classification CLI's arguments: its defaults, the train phase's
+    pretrain checkpoints as --loaddir, one epoch and the test."""
+    return ["--data_path", data, "--vocab_file", vocab,
+            "--savedir", os.path.join(d, "clf_run"),
+            "--loaddir", os.path.join(d, "pretrain_run"),
+            "--max_epochs", "1", "--do_test", "true", "--device", "cuda"]
+
+
+def _check_clf_metrics(metrics: dict, labels: np.ndarray, what: str) -> None:
+    """Finite F1; each class's AUROC finite, nan only where the split holds
+    one label value for that class."""
+    check(all(np.isfinite(metrics[k]) for k in ("micro_f1", "macro_f1",
+                                                 "micro_roc_auc")),
+          f"{what} metrics {metrics}")
+    for c, auc in enumerate(metrics["per_class_auroc"].values()):
+        one_value = labels[:, c].min() == labels[:, c].max()
+        check(np.isfinite(auc) != one_value,
+              f"{what} class {c} AUROC {auc} (one label value: {one_value})")
+
+
+def phase_classify(d: str, vocab: str, device) -> dict:
+    """The classification CLI's entry point at its defaults; returns the
+    launch counts."""
+    data = write_clf_data(d, vocab)
+    argv = _clf_argv(d, vocab, data)
+    args = classification_main.build_parser().parse_args(argv)
+    labels, _ = get_labels_and_frequencies(os.path.join(data, "Train.jsonl"))
+    cfg = classification_main.config_from_args(args, labels)
+    with torch.device("meta"):
+        own = classify.build_model(cfg, len(labels)).state_dict()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = classification_main.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = out["epochs"][0]
+    check(row["micro_steps"] == CLF_TRAIN_BATCHES and
+          np.isfinite(row["train_loss"]), f"classify epoch {row}")
+    # two eval batches: valid and test, one each
+    want = {"K1": 12 * CLF_TRAIN_BATCHES + 12 * 2,
+            "K2": 12 * CLF_TRAIN_BATCHES, "K3": 0, "K4": 0}
+    check(counts == want, f"classify launches {counts} != {want}")
+    shared = sorted(k for k in own if k.startswith("enc.")
+                    and not k.endswith("num_batches_tracked"))
+    check(out["merged"] == shared, f"merged {len(out['merged'])} of the "
+                                   f"{len(shared)} shared enc.* tensors")
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    for name, metrics in (("Valid", row), ("Test", out["test"])):
+        ds = ClassificationDataset(
+            os.path.join(data, f"{name}.jsonl"), tok, labels,
+            cfg.max_seq_len, cfg.num_image_embeds, cfg.img_size,
+            image_loader=lambda _: np.zeros((1, 1, 3), np.uint8))
+        _check_clf_metrics(metrics, np.stack(
+            [ds[i]["label"] for i in range(len(ds))]), name)
+    run = os.path.join(args.savedir, args.save_name)
+    for f in (f"{args.save_name}.csv", "model.0.bin", "model.best.bin",
+              "metrics.jsonl"):
+        check(os.path.exists(os.path.join(run, f)), f"classify wrote no {f}")
+    saved = torch.load(os.path.join(run, "model.0.bin"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    check(sorted(saved) == sorted(own), "model.0.bin keys differ from the "
+                                        "MMBT layout")
+    del saved
+    emit({"phase": "classify", "train_records": CLF_TRAIN_BATCHES * CLF_B,
+          "batch": CLF_B, "seq": CLF_L, "labels": len(labels),
+          "micro_steps": row["micro_steps"], "merged_tensors":
+          len(out["merged"]), "train_loss": row["train_loss"],
+          "examples_per_s": row["examples_per_s"],
+          "ms_per_micro_step": row["epoch_time_s"] / row["micro_steps"]
+          * 1e3, "epoch_s": row["epoch_time_s"], "wall_s": wall,
+          "peak_mem_gib": peak,
+          "valid": {k: row[k] for k in ("micro_roc_auc", "macro_roc_auc",
+                                         "micro_f1", "macro_f1")},
+          "test": {k: out["test"][k] for k in ("micro_roc_auc",
+                                                "macro_roc_auc", "micro_f1",
+                                                "macro_f1")},
+          "launches": counts,
+          "launches_per_micro_step": {"K1": 12, "K2": 12},
+          "k1_per_eval_batch": 12})
+    return counts
+
+
+def _clf_setup(data: str, vocab: str):
+    """(config at the CLI's defaults, train dataset, pos_weight on the
+    CPU, cls id, sep id) for the classification fixture in ``data``."""
+    args = classification_main.build_parser().parse_args(
+        ["--data_path", data, "--vocab_file", vocab])
+    train = os.path.join(data, "Train.jsonl")
+    labels, freqs = get_labels_and_frequencies(train)
+    cfg = classification_main.config_from_args(args, labels)
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    ds = ClassificationDataset(train, tok, labels, cfg.max_seq_len,
+                               cfg.num_image_embeds, cfg.img_size)
+    pw = torch.from_numpy(pos_weights(freqs, labels, len(ds)))
+    return cfg, ds, pw, tok.vocab["[CLS]"], tok.vocab["[SEP]"]
+
+
+def _clf_parity_step(cfg, ds, pw, cls_id: int, sep_id: int, device,
+                     compute_dtype: str) -> dict:
+    """One classification step at full width, batch 4, fused_ln on, dropout
+    0.1, the trunk trained, in ``compute_dtype``, by both paths
+    (_kernel_and_plain)."""
+    cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, compute_dtype=compute_dtype, fused_ln=True))
+    batch = pretrain_lib.to_device(next(iter(BatchLoader(ds, 4,
+                                                         shuffle=False))),
+                                   device)
+    model = classify.build_model(cfg, len(cfg.labels))
+    init_weights(model, SEED)
+    model.to(device)
+    pw = pw.to(device)
+
+    def loss_fn(attention_fn):
+        return classify.loss_and_logits(
+            model, batch, DropoutRNG(SEED + 3, device), cfg, pw, cls_id,
+            sep_id, attention_fn=attention_fn)[0]
+
+    return _kernel_and_plain(
+        model, loss_fn, _plain_attention(
+            full_spec(batch["txt_len"]), CLF_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+            cfg.bert.attention_probs_dropout_prob),
+        f"classify {compute_dtype}")
+
+
+def phase_clf_steps(data: str, vocab: str, device) -> dict:
+    """The classification step on one device-resident batch of CLF_B at the
+    CLI's defaults (trunk trained): steady ms per micro-step with fused_ln
+    off and on (2 of warmup, 4 timed; exactly 12 K1 + 12 K2, and with
+    fused_ln 24 K3 + 24 K4, per micro-step), peak memory; then train-parity's
+    f32 leg on one step at batch 4 (the trunk trained).  No bf16 leg: its
+    loss, a mean of 4 x 14 BCE terms, moves under the kernels' bf16
+    rounding of P by about twice the plain path's own bf16-vs-f32 distance
+    (1.95x on an H100), so train-parity's limit of 2x would decide nothing.
+    Returns the fused run's launch counts."""
+    cfg, ds, pw, cls_id, sep_id = _clf_setup(data, vocab)
+    batch = pretrain_lib.to_device(next(iter(BatchLoader(ds, CLF_B,
+                                                         shuffle=False))),
+                                   device)
+    timing, peak = {}, {}
+    for fused in (False, True):
+        c = dataclasses.replace(cfg, bert=dataclasses.replace(
+            cfg.bert, fused_ln=fused))
+        state = classify.init_state(c, len(cfg.labels), t_total=100,
+                                    seed=SEED, device=device)
+        name = "fused" if fused else "unfused"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        timing[name] = _steady_ms(state, classify.make_train_step(
+            c, pw.to(device), cls_id, sep_id), batch)
+        counts = read_counts()
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del state
+        n = 2 + 4
+        want = {"K1": 12 * n, "K2": 12 * n, "K3": 24 * n if fused else 0,
+                "K4": 24 * n if fused else 0}
+        check(counts == want, f"clf-steps {name} launches {counts} != "
+                              f"{want}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    legs = {"float32": _clf_parity_step(cfg, ds, pw, cls_id, sep_id, device,
+                                        "float32")}
+    rec = {"phase": "clf-steps", "batch": CLF_B, "seq": CLF_L,
+           "steady_ms_per_micro_step": timing,
+           "steady_examples_per_s": {k: CLF_B / v * 1e3
+                                     for k, v in timing.items()},
+           "peak_mem_gib": peak, "launches_fused": counts,
+           "parity": {"tf32": False, "batch": 4, "dropout": 0.1,
+                      "fused_ln": True}}
+    _check_parity_legs(legs, rec["parity"], "clf-steps")
+    emit(rec)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -1728,9 +2040,13 @@ def main() -> int:
         phase_finetune_steps(ft_argv, device)
         phase_finetune_parity(ft_argv, device)
         decode_counts = phase_decode(ft_argv, d, device)
+        classify_counts = phase_classify(d, vocab, device)
+        clf_fused_counts = phase_clf_steps(os.path.join(d, "clf_data"),
+                                           vocab, device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
              "train-fused": fused_counts, "finetune": finetune_counts,
-             "decode": decode_counts}
+             "decode": decode_counts, "classify": classify_counts,
+             "classify-fused": clf_fused_counts}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",

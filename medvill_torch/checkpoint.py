@@ -1,8 +1,10 @@
-"""Weights across slices: a pretrain checkpoint into the finetune model.
+"""Weights across slices: a pretrain checkpoint into the finetune and the
+classification models.
 
-Jax-free counterparts of medvill_tpu/core/checkpoint.py:210-336 and of the
+Jax-free counterparts of medvill_tpu/core/checkpoint.py:210-336, of the
 finetune CLI's recover path (cli/finetune_main.py:282-310,440-465 through
-core/torch_init.py:230-296):
+core/torch_init.py:230-296) and of the classification CLI's
+``_merge_pretrained`` (cli/classification_main.py:356-387):
 
 - ``torch_remap``: the reference's key remaps between stages
   (``pretrain_to_finetune``: ``enc.`` stripped, ``mlm.`` -> ``cls.``;
@@ -13,10 +15,17 @@ core/torch_init.py:230-296):
 - ``resize_position_embeddings``: copy min(old, new) rows; a longer table
   repeats the last learned row;
 - ``recover_pretrain_into_vlp``: a CXRBERT pretrain file (written by the
-  port's pretrain CLI or by the reference) into a ``VLPForPreTraining``.
+  port's pretrain CLI or by the reference) into a ``VLPForPreTraining``;
+- ``latest_pretrain_file``: the ``model.<epoch>.bin`` of the highest epoch
+  in a directory;
+- ``merge_pretrained_into_mmbt``: a non-strict load of a pretrain file
+  into a ``MultimodalBertClf``: every ``enc.*`` tensor whose name and shape
+  the model shares.
 """
 from __future__ import annotations
 
+import os
+import re
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -124,3 +133,34 @@ def recover_pretrain_into_vlp(model: nn.Module, path: str
                              f"model {tuple(own[k].shape)}")
     model.load_state_dict(new, strict=False)
     return sorted(new), sorted(set(own) - set(new))
+
+
+def latest_pretrain_file(directory: str) -> str:
+    """``<directory>/model.<epoch>.bin`` of the highest epoch; raises
+    FileNotFoundError when there is none (a mistyped directory must not
+    train from the random init)."""
+    epochs = []
+    if os.path.isdir(directory):
+        for name in os.listdir(directory):
+            m = re.fullmatch(r"model\.(\d+)\.bin", name)
+            if m:
+                epochs.append(int(m.group(1)))
+    if not epochs:
+        raise FileNotFoundError(
+            f"{directory}: no pretrain checkpoint model.<epoch>.bin found")
+    return os.path.join(directory, f"model.{max(epochs)}.bin")
+
+
+def merge_pretrained_into_mmbt(model: nn.Module, path: str) -> List[str]:
+    """Copy into ``model`` (a ``MultimodalBertClf``) every ``enc.*``
+    parameter and BatchNorm running statistic of the pretrain file at
+    ``path`` whose name and shape the model shares, as the reference's
+    ``load_state_dict(strict=False)`` does (mmbt/main.py:241-244).  The
+    rest keep their values.  Returns the merged keys."""
+    own = model.state_dict()
+    new = {k: v for k, v in _read_checkpoint(path).items()
+           if k.startswith("enc.") and k in own
+           and not k.endswith("num_batches_tracked")
+           and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(new, strict=False)
+    return sorted(new)

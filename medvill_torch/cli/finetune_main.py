@@ -10,7 +10,8 @@ It builds the VLP model (random weights from ``--seed``), recovers a
 pretrain checkpoint in the CXRBERT layout when ``--model_recover_path`` is
 given (``medvill_torch.checkpoint.recover_pretrain_into_vlp``: the keys the
 file lacks keep their random init and are logged), and runs
-``--num_train_epochs`` over ``BatchLoader`` -> the train step of
+``--num_train_epochs`` over ``BatchLoader`` (prefetched and placed on the
+device on a background thread, ``dispatch_loader``) -> the train step of
 ``medvill_torch.train.finetune`` (BertAdam over ``t_total = max(1,
 len(loader) * epochs // accumulation)`` optimizer steps, drop-worst from
 the epoch after ``--drop_after``).  At the end of each epoch it writes
@@ -41,12 +42,11 @@ from medvill_torch.checkpoint import recover_pretrain_into_vlp
 from medvill_torch.cli import str2bool
 from medvill_torch.config import (BertConfig, FinetuneConfig,
                                   ImageEncoderConfig)
-from medvill_torch.data.pretrain import BatchLoader
+from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
 from medvill_torch.data.seq2seq import Img2TxtDataset
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.data.vqa import VQADataset
 from medvill_torch.train import finetune as ft
-from medvill_torch.train.pretrain import to_device
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
 from medvill_torch.utils.seed import set_seed
@@ -233,10 +233,8 @@ def train(args) -> dict:
             step = ft.make_train_step(cfg, ratio)
             t0 = time.perf_counter()
             agg: Dict[str, List[torch.Tensor]] = {}
-            for batch in loader:
-                m = step(state, to_device(
-                    {k: batch[k] for k in _KEYS if k in batch}, device),
-                    generator)
+            for batch in dispatch_loader(loader, device, keys=_KEYS):
+                m = step(state, batch, generator)
                 for k, v in m.items():
                     agg.setdefault(k, []).append(v)
             row = _epoch_row(agg)  # reads the device: the epoch has ended

@@ -5,7 +5,9 @@ data, tasks, mask variants, schedule, model and optimizer).
     python -m medvill_torch.cli.pretrain_main --train_dataset train.jsonl \
         --vocab_file vocab.txt [--BAR_attn true] [--device cuda]
 
-It runs ``--epochs`` over the dataset: ``BatchLoader`` -> the train step of
+It runs ``--epochs`` over the dataset: ``BatchLoader``, prefetched and
+placed on the device on a background thread (``dispatch_loader``) -> the
+train step of
 ``medvill_torch.train.pretrain`` (AdamW at constant ``--lr``: the JAX CLI
 parses ``--warmup`` and applies no schedule, and neither does this one;
 ``--dropout_prob`` is parsed and, as there, does not change the model's
@@ -35,10 +37,10 @@ from medvill_torch.cli import str2bool
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   PretrainConfig)
 from medvill_torch.convert import load_cxrbert_checkpoint
-from medvill_torch.data.pretrain import BatchLoader, CXRPretrainDataset
+from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
+                                         dispatch_loader)
 from medvill_torch.data.tokenization import BertTokenizer
-from medvill_torch.train.pretrain import (init_state, make_train_step,
-                                          to_device)
+from medvill_torch.train.pretrain import init_state, make_train_step
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
 from medvill_torch.utils.seed import set_seed
@@ -184,8 +186,8 @@ def train(args) -> List[dict]:
         for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
             agg: Dict[str, List[torch.Tensor]] = {}
-            for i, batch in enumerate(loader):
-                m = train_step(state, to_device(batch, device), generator)
+            for i, batch in enumerate(dispatch_loader(loader, device)):
+                m = train_step(state, batch, generator)
                 for k, v in m.items():
                     agg.setdefault(k, []).append(v)
                 if i % cfg.log_freq == 0:

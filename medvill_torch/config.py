@@ -1,14 +1,15 @@
 """Typed configuration: a torch-free, jax-free copy of the JAX package's
 ``MaskVariant``, ``BertConfig``, ``ImageEncoderConfig``, ``PretrainConfig``,
-``FinetuneConfig`` and ``DecodeConfig`` (medvill_tpu/core/config.py:16-293,
-360-441), with the same fields and defaults so a ``config.json`` or a CLI
+``FinetuneConfig``, ``ClassificationConfig`` and ``DecodeConfig``
+(medvill_tpu/core/config.py:16-329, 360-441), with the same fields and defaults so a ``config.json`` or a CLI
 flag means the same thing to both packages.
 
 ``compute_dtype`` names the matmul/conv dtype; LayerNorm, BatchNorm and
 softmax statistics are always f32.  ``remat``/``remat_mode`` (a memory
 knob), ``fused_qkv`` (a JAX parameter-tree layout) and the TPU-only
 ``PretrainConfig`` fields (``mesh_shape``, ``donate_state``,
-``mlm_loss_chunk``) have no effect on the port.  ``fast_dropout`` selects
+``mlm_loss_chunk``, ``ClassificationConfig.mesh_shape``) have no effect on
+the port.  ``fast_dropout`` selects
 the same Bernoulli(rate) marginal as plain dropout, so the port has one
 dropout for both.  ``FinetuneConfig`` has every field of the JAX one but
 ``mesh_shape``.
@@ -144,8 +145,11 @@ class BertConfig:
 class ImageEncoderConfig:
     """Visual encoder config (reference: models/image.py,
     main_origin.py:133-139).  The port runs the ResNet-50 random-pixel and
-    full-fiber encoders; ``s2d_stem`` is a TPU layout choice with the same
-    math as the plain 7x7/s2 stem the port always runs."""
+    full-fiber encoders, and in the classification model also ``pool``
+    (the 1-9-embed adaptive-pool table) and ``pool-half`` (the map pooled
+    to half its side; ``pool_type`` avg or max); ``s2d_stem`` is a TPU
+    layout choice with the same math as the plain 7x7/s2 stem the port
+    always runs."""
 
     encoder: str = "random-pixel"
     img_size: int = 512
@@ -295,6 +299,43 @@ class FinetuneConfig:
     image: ImageEncoderConfig = dataclasses.field(
         default_factory=lambda: ImageEncoderConfig(num_image_embeds=256,
                                                    encoder="full-fiber"))
+    use_flash_attention: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassificationConfig:
+    """MMBT multilabel classification (reference:
+    Downstream_task/Classification/mmbt/main.py:23-91).  ``task_type``
+    "multilabel" trains weighted BCE and reports AUROC/F1,
+    "classification" softmax CE and accuracy; ``freeze_img``/``freeze_txt``
+    are the epochs the image trunk / the text encoder stay frozen."""
+
+    data_path: str = ""
+    output_path: str = "output_clf"
+    task: str = "mimic-cxr"  # mimic-cxr | openi
+    task_type: str = "multilabel"
+    batch_size: int = 56
+    max_epochs: int = 10
+    lr: float = 1e-4
+    lr_factor: float = 0.5
+    lr_patience: int = 2
+    patience: int = 10       # early stop
+    warmup: float = 0.1
+    gradient_accumulation_steps: int = 1
+    dropout_prob: float = 0.1
+    max_seq_len: int = 512
+    num_image_embeds: int = 256
+    img_size: int = 512
+    seed: int = 123
+    freeze_img: int = 3
+    freeze_txt: int = 5
+    weight_classes: bool = True
+    pretrained_ckpt: Optional[str] = None
+    labels: Tuple[str, ...] = ()
+    bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    image: ImageEncoderConfig = dataclasses.field(
+        default_factory=lambda: ImageEncoderConfig(num_image_embeds=256))
+    mesh_shape: Tuple[int, ...] = (-1,)
     use_flash_attention: bool = True
 
 

@@ -12,12 +12,19 @@
   package's CXRBERT pretrain tree -> the reference pretrain layout
   (``enc.* mlm.predictions.* itm.linear.*``), a jax-free copy of
   ``export_cxrbert_state_dict`` (core/torch_export.py:143-194).
+- ``mmbt_state_dict_from_flax(params, batch_stats)``: the JAX package's
+  MMBT classification tree -> the reference MMBT layout (``enc.*
+  clf.*``), a jax-free copy of ``export_mmbt_state_dict``
+  (core/torch_export.py:241-255).
 - ``load_vlp_checkpoint(model, path)``: a reference ``model.{N}.bin``
   (or one written by ``save_state_dict``) into a ``VLPForPreTraining``;
   ``module.``/``bert.`` prefixes are stripped as
   ``medvill_tpu.core.torch_init.init_vlp_from_torch`` does.
 - ``load_cxrbert_checkpoint(model, path)``: a pretrain checkpoint in the
   CXRBERT layout (the pretrain CLI writes them) into a ``CXRBERT``.
+- ``load_mmbt_checkpoint(model, path)``: a classification checkpoint in
+  the MMBT layout (the classification CLI writes them) into a
+  ``MultimodalBertClf``.
 """
 from __future__ import annotations
 
@@ -168,6 +175,24 @@ def cxrbert_state_dict_from_flax(params: Mapping, batch_stats: Mapping
     return out
 
 
+def mmbt_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                              ) -> StateDict:
+    """JAX MMBT tree (``{"enc": ..., "clf": {"clf": ...}}`` params,
+    ``{"enc": {"img_encoder": ...}}`` batch stats) -> the reference MMBT
+    ``state_dict`` layout, as numpy arrays."""
+    out: StateDict = {}
+    enc = params["enc"]
+    _embeddings(out, "enc.txt_embeddings", enc["embeddings"])
+    _lin(out, "enc.img_embeddings.img_embeddings", enc["img_projection"])
+    _trunk(out, "enc.img_encoder", enc["img_encoder"],
+           batch_stats["enc"]["img_encoder"])
+    _encoder(out, "enc.encoder", enc["encoder"])
+    _lin(out, "enc.pooler.dense", enc["pooler"]["dense"])
+    if "clf" in params:
+        _lin(out, "clf", params["clf"]["clf"])
+    return out
+
+
 def save_state_dict(sd: Mapping[str, np.ndarray], path: str) -> None:
     """``torch.save`` a flat numpy state dict as tensors (the format every
     reference ``torch.load`` site reads)."""
@@ -225,5 +250,11 @@ def load_vlp_checkpoint(model: nn.Module, path: str) -> List[str]:
 
 def load_cxrbert_checkpoint(model: nn.Module, path: str) -> List[str]:
     """Load a pretrain checkpoint file in the CXRBERT layout into
+    ``model``, as strictly as ``load_vlp_checkpoint``."""
+    return _load_strict(model, _read_checkpoint(path), path)
+
+
+def load_mmbt_checkpoint(model: nn.Module, path: str) -> List[str]:
+    """Load a classification checkpoint file in the MMBT layout into
     ``model``, as strictly as ``load_vlp_checkpoint``."""
     return _load_strict(model, _read_checkpoint(path), path)

@@ -1,6 +1,8 @@
 """Pretraining data pipeline: JSONL -> numpy batches of (ids, labels, spec)
 (a copy of medvill_tpu/data/pretrain.py without its multi-host sharding,
-mid-epoch resume and device-placement helpers).
+mid-epoch resume and batch grouping), and the training CLIs' input
+pipeline, ``dispatch_loader``: a ``PrefetchLoader`` that builds and places
+the next batches on the device on a background thread while the step runs.
 
 Each example carries a 2-int mask spec ``(variant, txt_len)`` instead of an
 ``[L, L]`` mask (data/masks.py).  JSONL schema (reference:
@@ -12,11 +14,14 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import random
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from medvill_torch.config import MaskVariant, PretrainConfig
 from medvill_torch.data import images as image_lib
@@ -166,6 +171,142 @@ class BatchLoader:
         B = self.batch_size
         for i in range(len(self)):
             yield collate(self._fetch(order[i * B:(i + 1) * B]))
+
+
+class PrefetchLoader:
+    """Wraps a batch iterable with a background thread and a queue of
+    ``depth`` batches, so host preprocessing (image decode, tokenization,
+    masking) and, through ``place_fn``, the copy to the device overlap the
+    running step (medvill_tpu/data/pretrain.py:303-387; the reference's
+    ``DataLoader(num_workers=...)``).  The batches come out in the wrapped
+    iterable's order, an exception of the producer is raised on the
+    consumer's side, and a consumer that stops early (break, an exception,
+    early stopping) releases the producer and drops the queued batches."""
+
+    def __init__(self, loader, depth: int = 2, place_fn=None):
+        self.loader = loader
+        self.depth = depth
+        self.place_fn = place_fn
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        end = object()
+        err: List[BaseException] = []
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # a plain q.put would block forever once the consumer is gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    # a put racing the consumer's drain can land in the
+                    # freed slot: check before fetching and placing more
+                    if stop.is_set():
+                        return
+                    if self.place_fn is not None:
+                        batch = self.place_fn(batch)
+                    if not put(batch):
+                        return
+            except BaseException as e:  # raised on the consumer's side
+                err.append(e)
+            finally:
+                put(end)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+
+        def drain():
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            # on GeneratorExit too: release the producer, then drop what it
+            # queued (and what one racing put added) so no placed batch
+            # outlives the abandonment
+            stop.set()
+            drain()
+            t.join(timeout=2.0)
+            drain()
+
+
+def _select(batch: dict, keys: Optional[Sequence[str]]) -> dict:
+    return batch if keys is None else {k: batch[k] for k in keys
+                                       if k in batch}
+
+
+class _CudaPrefetch:
+    """``dispatch_loader`` on a CUDA device: the producer copies each batch
+    into pinned host memory and from there to the device on a side stream
+    (``non_blocking``: a copy from pageable memory would synchronize); the
+    consumer's stream waits on that copy's event before the batch is
+    handed out, and each tensor is ``record_stream``-ed to the consumer's
+    stream so the allocator does not reuse it while the step reads it."""
+
+    def __init__(self, loader, device: torch.device, keys):
+        self.loader, self.device, self.keys = loader, device, keys
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        copy_stream = torch.cuda.Stream(self.device)
+
+        def place(batch):
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(copy_stream):
+                out = {k: torch.from_numpy(np.ascontiguousarray(v))
+                       .pin_memory().to(self.device, non_blocking=True)
+                       for k, v in _select(batch, self.keys).items()}
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+            return out, done
+
+        it = iter(PrefetchLoader(self.loader, place_fn=place))
+        try:
+            for out, done in it:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(done)
+                for t in out.values():
+                    t.record_stream(stream)
+                yield out
+        finally:
+            it.close()
+
+
+def dispatch_loader(loader, device, keys: Optional[Sequence[str]] = None):
+    """The training CLIs' input pipeline (medvill_tpu/data/pretrain.py:284
+    with one micro-step per dispatch): iterates ``loader``'s numpy batches
+    on a background thread and yields them as tensors on ``device`` (only
+    ``keys``, when given), up to two batches ahead of the consumer, in the
+    loader's order."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _CudaPrefetch(loader, device, keys)
+    return PrefetchLoader(loader, place_fn=lambda b: {
+        k: torch.as_tensor(v).to(device)
+        for k, v in _select(b, keys).items()})
 
 
 def synthetic_records(n: int, rng: Optional[random.Random] = None,

@@ -7,6 +7,9 @@
   ``bias``.
 - ``ITMHead`` (heads.py:62-67): an f32 ``Linear(hidden -> 2)`` on the
   pooled output, parameters under ``linear``.
+- ``ClfHead`` (heads.py:70-75): the classification model's f32
+  ``Linear(hidden -> n_classes)`` on the pooled output; its parameters are
+  the reference MMBT's ``clf.weight``/``clf.bias``.
 - ``VQAHead`` (heads.py:78-86): ``Linear(H -> 2H)``, ReLU,
   ``Linear(2H -> n_answers)`` in f32, as the reference's
   ``ans_classifier`` ``Sequential`` (parameters ``0.*`` and ``2.*``).
@@ -82,6 +85,12 @@ class ITMHead(nn.Module):
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:
         """pooled [B, H] in any dtype -> f32 logits [B, 2]."""
         return self.linear(pooled.float())
+
+
+class ClfHead(nn.Linear):
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        """pooled [B, H] in any dtype -> f32 logits [B, n_classes]."""
+        return super().forward(pooled.float())
 
 
 class VQAHead(nn.Sequential):

@@ -22,6 +22,9 @@ convolutions run NCHW inside.  Parameters sit under the reference's
   frozen trunk gets no gradient, but its statistics still move.
 - Convolutions run in ``dtype`` (bf16 when serving); the caller decides
   whether cuDNN may use TF32 for f32 convolutions.
+- ``fibers`` flattens the map; ``pooled_fibers`` and ``half_pooled_fibers``
+  are the classification model's pool encoders (torch adaptive pooling,
+  medvill_tpu/models/resnet.py:173-227).
 """
 from __future__ import annotations
 
@@ -141,3 +144,43 @@ def fibers(feature_map: torch.Tensor) -> torch.Tensor:
     B, H, W, C = feature_map.shape
     return feature_map.reshape(B, H * W, C)
 
+
+
+# torch AdaptiveAvgPool2d target shapes per num_image_embeds
+# (reference: mmbt/models/image.py:30-39)
+POOL_SHAPES = {1: (1, 1), 2: (2, 1), 3: (3, 1), 5: (5, 1), 7: (7, 1),
+               4: (2, 2), 6: (3, 2), 8: (4, 2), 9: (3, 3)}
+
+
+def adaptive_pool(fmap: torch.Tensor, out_hw, mode: str = "avg"
+                  ) -> torch.Tensor:
+    """torch's adaptive pooling on an NHWC map: output cell i of an H -> oh
+    reduction spans rows [floor(i * H / oh), ceil((i + 1) * H / oh)).
+    [B, H, W, C] -> [B, oh, ow, C]."""
+    if mode not in ("avg", "max"):
+        raise ValueError(f"pool type {mode!r}: avg or max")
+    pool = F.adaptive_avg_pool2d if mode == "avg" else F.adaptive_max_pool2d
+    return pool(fmap.permute(0, 3, 1, 2), tuple(out_hw)).permute(0, 2, 3, 1)
+
+
+def pooled_fibers(fmap: torch.Tensor, num_image_embeds: int,
+                  pool_type: str = "avg") -> torch.Tensor:
+    """The 1-9-embed pool encoder: the trunk map pooled to the reference's
+    per-N shape, flattened row-major to [B, N, C] (reference:
+    mmbt/models/image.py:16-56)."""
+    if num_image_embeds not in POOL_SHAPES:
+        raise ValueError(
+            f"pool encoder defined for num_image_embeds in "
+            f"{sorted(POOL_SHAPES)}, got {num_image_embeds}")
+    out = adaptive_pool(fmap, POOL_SHAPES[num_image_embeds], pool_type)
+    B, oh, ow, C = out.shape
+    return out.reshape(B, oh * ow, C)
+
+
+def half_pooled_fibers(fmap: torch.Tensor,
+                       pool_type: str = "avg") -> torch.Tensor:
+    """ImageEncoder_pool: the [B, M, M, C] map pooled to (M // 2, M // 2)
+    and flattened (reference: models/image.py:71-93)."""
+    B, H, W, C = fmap.shape
+    out = adaptive_pool(fmap, (H // 2, W // 2), pool_type)
+    return out.reshape(B, (H // 2) * (W // 2), C)

@@ -1,4 +1,5 @@
-"""The finetune losses (medvill_tpu/train/losses.py:39-99).
+"""The finetune and classification losses
+(medvill_tpu/train/losses.py:39-109).
 
 - ``cross_entropy_per_example``: unreduced CE, no ignore handling.
 - ``label_smoothing_loss``: per position, KL(smoothed one-hot || softmax)
@@ -12,6 +13,9 @@
   model.py:1003-1010).
 - ``bce_with_logits``: the VQA soft-target BCE, mean over every element
   (reference: model.py:944).
+- ``weighted_bce_with_logits``: ``BCEWithLogitsLoss(pos_weight=...)``, mean
+  over every element, the classification loss (reference:
+  mmbt/main.py:93-104).
 
 A padded masked position gathers row 0 with label 0 and weight 0: it adds
 0 through the weight in ``drop_worst_normalize`` and, with label smoothing,
@@ -61,3 +65,12 @@ def bce_with_logits(logits: torch.Tensor,
     logits = logits.float()
     return torch.mean(torch.clamp(logits, min=0) - logits * targets
                       + torch.log1p(torch.exp(-logits.abs())))
+
+
+def weighted_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                             pos_weight: torch.Tensor) -> torch.Tensor:
+    """[B, C], [B, C], [C] -> scalar."""
+    logits = logits.float()
+    loss = -(pos_weight * targets * F.logsigmoid(logits)
+             + (1 - targets) * F.logsigmoid(-logits))
+    return loss.mean()

@@ -23,7 +23,12 @@ train/finetune.py:199-208).
   warmup)`` for the k-th update (k from 0, so the first update has lr 0).
   A trainable parameter with no gradient (the pooler, whose output no
   finetune loss reads) takes a zero one, as JAX's zero cotangent: weight
-  decay still moves it.
+  decay still moves it.  A parameter with ``requires_grad`` off (a
+  classification phase's frozen trunk or text encoder) is skipped: no
+  update, no decay, its moments untouched (zero while it has never
+  trained), as JAX's frozen-phase step zeroes its updates.  ``plateau``
+  multiplies the lr on top of the schedule (the classification CLI's
+  ``ReduceLROnPlateau`` scale, train/classify.py).
 - ``SCHEDULES``: ``warmup_linear`` (decays as ``max((x - 1) / (warmup -
   1), 0)``), ``warmup_constant``, ``warmup_cosine``
   (reference: sc/pytorch_pretrained_bert/optimization.py:32-44).
@@ -106,16 +111,21 @@ class BertAdam(torch.optim.Optimizer):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.max_grad_norm = max_grad_norm
         self.opt_step = 0
+        self.plateau = 1.0
 
     def lr_scale(self) -> float:
-        """``schedule(opt_step / t_total, warmup)`` of the next update."""
-        return self.schedule(self.opt_step / self.t_total, self.warmup)
+        """``schedule(opt_step / t_total, warmup) * plateau`` of the next
+        update."""
+        return (self.schedule(self.opt_step / self.t_total, self.warmup)
+                * self.plateau)
 
     @torch.no_grad()
     def step(self, closure=None):
         scale = self.lr_scale()
         for group in self.param_groups:
-            params = group["params"]
+            params = [p for p in group["params"] if p.requires_grad]
+            if not params:
+                continue
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
             if self.max_grad_norm > 0:

@@ -463,3 +463,129 @@ def test_bertadam_on_card_matches_cpu(cuda_device):
         result.append([p.detach().cpu() for p in params])
     for a, b in zip(*result):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_at_the_mmbt_call(cuda_device, dtype, rate):
+    """K1 and K2 at the classification step's call: B = 56, L = 258 + 256 =
+    514 (the last tile holds 2 rows), FULL, img_block 258, text lengths
+    1..256 (the key tiles of the padding skipped in bf16), against the
+    plain versions."""
+    B, L, img_block = 56, 514, 258
+    q, k, v, do = _attn_inputs(cuda_device, B, L, 12, dtype, 56)
+    txt = torch.randint(1, L - img_block + 1, (B,),
+                        generator=torch.Generator().manual_seed(56))
+    spec = torch.stack([torch.zeros_like(txt), txt], 1).to(
+        device=cuda_device, dtype=torch.int32)
+    _check_attention(q, k, v, do, spec, dict(
+        img_block=img_block, l_real=L, family=tfa.FAMILY_PRETRAIN,
+        rate=rate, seed=5))
+
+
+def test_mmbt_step_on_card(cuda_device, monkeypatch):
+    """One classification micro-step in f32 (2 layers of 2 x 64 heads, 4
+    image embeds and 12 text positions, the trunk trained with train-mode
+    BatchNorm, dropout 0.1, weighted BCE) through K1-K4 against the same
+    step with the plain versions swapped in, from the same weights and
+    seeds: 2 K1, 2 K2, 4 K3 and 4 K4 launches per micro-step and 2 K1 per
+    eval batch; the loss within 1e-4 relative and every gradient within
+    1e-3 of its tensor's largest entry (a key bias of its layer's key
+    weights'), chip_smoke.py train-parity's f32 tolerances."""
+    from medvill_torch.config import ClassificationConfig
+    from medvill_torch.models import bert as bert_lib
+    from medvill_torch.models.mmbt import full_spec
+    from medvill_torch.ops.dropout import DropoutRNG
+    from medvill_torch.train import classify as tclf
+
+    bert = BertConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256,
+                      compute_dtype="float32", fused_ln=True)
+    cfg = ClassificationConfig(
+        bert=bert, image=ImageEncoderConfig(img_size=64, num_image_embeds=4,
+                                            encoder="full-fiber"),
+        num_image_embeds=4, max_seq_len=16, img_size=64,
+        labels=("a", "b", "c"))
+    model = tclf.build_model(cfg, 3)
+    init_weights(model, 0, initializer_range=0.1)
+    model.to(cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    B, T = 3, 12
+    batch = {k: v.to(cuda_device) for k, v in dict(
+        input_txt=torch.randint(5, 64, (B, T), generator=gen),
+        txt_len=torch.tensor([3, 12, 7]),
+        segment=torch.ones(B, T, dtype=torch.long),
+        image=torch.randint(0, 256, (B, 64, 64, 3), generator=gen,
+                            dtype=torch.uint8),
+        label=torch.tensor([[1.0, 0, 1], [0, 1, 0], [1, 1, 0]])).items()}
+    pw = torch.tensor([2.0, 0.5, 1.0], device=cuda_device)
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+
+    def plain_attention(q, k, v, bias, rng=None, deterministic=True):
+        return tfa.attn_fwd_plain(q, k, v, full_spec(batch["txt_len"]),
+                                  img_block=6, l_real=q.shape[1],
+                                  family=tfa.FAMILY_PRETRAIN, rate=0.1,
+                                  seed=rng.next_seed())[0]
+
+    def launches():
+        return (tfa.attn_fwd.launches, tfa.attn_bwd.launches,
+                tfl.fused_ln_fwd.launches, tfl.fused_ln_bwd.launches)
+
+    out = {}
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(buffers[k])
+        if path == "plain":
+            monkeypatch.setattr(bert_lib, "fused_dropout_add_ln",
+                                tfl.fused_dropout_add_ln_plain)
+        before = launches()
+        loss, _ = tclf.loss_and_logits(
+            model, batch, DropoutRNG(3, cuda_device), cfg, pw, 2, 3,
+            attention_fn=plain_attention if path == "plain" else None)
+        loss.backward()
+        assert [a - b for a, b in zip(launches(), before)] == (
+            [2, 2, 4, 4] if path == "kernel" else [0, 0, 0, 0])
+        out[path] = (loss.item(), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()})
+    monkeypatch.undo()
+    before = launches()
+    logits = tclf.make_eval_step(cfg, 2, 3)(model, batch)
+    assert [a - b for a, b in zip(launches(), before)] == [2, 0, 4, 0]
+    assert logits.shape == (3, 3) and bool(torch.isfinite(logits).all())
+    (k_loss, k_grads), (p_loss, p_grads) = out["kernel"], out["plain"]
+    assert np.isfinite(k_loss)
+    assert abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)
+    assert len(k_grads) == len(p_grads) > 159  # the trunk's 159 included
+    for name, w in p_grads.items():
+        ref = (p_grads[name[:-len("bias")] + "weight"]
+               if name.endswith("attention.self.key.bias") else w)
+        torch.testing.assert_close(k_grads[name], w, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+
+
+def test_dispatch_loader_on_card(cuda_device):
+    """The prefetching pipeline on the card: the batches come out in the
+    loader's order, on the card, equal to the numpy ones, only the keys
+    asked for; an early exit releases the producer."""
+    import threading
+
+    from medvill_torch.data.pretrain import dispatch_loader
+
+    batches = [{"x": np.full((4, 3), i, np.int32),
+                "y": np.arange(6, dtype=np.float32) * i} for i in range(6)]
+    out = list(dispatch_loader(batches, cuda_device, keys=("x",)))
+    assert len(out) == 6
+    for i, b in enumerate(out):
+        assert set(b) == {"x"} and b["x"].device.type == "cuda"
+        assert torch.equal(b["x"].cpu(), torch.from_numpy(batches[i]["x"]))
+    before = threading.active_count()
+    it = iter(dispatch_loader(batches * 20, cuda_device))
+    next(it)
+    it.close()
+    for _ in range(100):
+        if threading.active_count() <= before:
+            break
+        threading.Event().wait(0.05)
+    assert threading.active_count() <= before

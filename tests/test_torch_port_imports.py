@@ -29,7 +29,10 @@ def test_modules_import_neither_jax_nor_medvill_tpu():
                  "cli.finetune_main", "checkpoint", "data.seq2seq",
                  "data.vqa", "train.finetune", "train.losses",
                  "cli.decode_main", "eval.bleu", "eval.caption_metrics",
-                 "eval.meteor", "eval.chexpert", "eval.lang_utils"):
+                 "eval.meteor", "eval.chexpert", "eval.lang_utils",
+                 "cli.classification_main", "data.classification",
+                 "eval.metrics", "models.mmbt", "train.classify",
+                 "utils.seed"):
         assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -79,6 +82,11 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         decode_main.main(["--src_file", "t.jsonl", "--vocab_file", "v.txt",
                           "--model_recover_path", "m.bin"])
+    from medvill_torch.cli import classification_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        classification_main.main(["--data_path", "d", "--vocab_file",
+                                  "v.txt"])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

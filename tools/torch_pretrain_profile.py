@@ -1,8 +1,9 @@
 """Where the time goes in the port's training step on one NVIDIA GPU:
-pretraining (the default) or report-generation finetuning.
+pretraining (the default), report-generation finetuning or MMBT
+classification.
 
-    python tools/torch_pretrain_profile.py [--mode finetune] [--fused_ln] \
-        [--steps 8] [--table out/torch_pretrain_profile.txt]
+    python tools/torch_pretrain_profile.py [--mode finetune|classify] \
+        [--fused_ln] [--steps 8] [--table out/torch_pretrain_profile.txt]
 
 ``--mode pretrain``: the configuration of chip_smoke.py's ``train`` phase:
 PretrainConfig defaults (BERT-base, ResNet-50 random-pixel encoder at 512 px
@@ -10,13 +11,17 @@ with 180 of 256 fibers, seq_len 253 so L = 436, BAR, batch 36, accumulation
 4, AdamW lr 1e-5).  ``--mode finetune``: the finetune CLI's defaults
 (BERT-base VLP, ResNet-50 at 512 px with all 256 fibers, L = 512, s2s
 masks, batch 4, max_pred 128, label smoothing 0.1, BertAdam lr 3e-5 at
-every micro-step).  Random weights from seed 0, bf16 compute.  It writes
+every micro-step).  ``--mode classify``: the classification CLI's defaults
+(BERT-base, the ResNet-50 trunk trained at 512 px with 256 fibers, FULL
+over L = 514, batch 56, weighted BCE over 14 labels, BertAdam lr 1e-4) on
+chip_smoke.py's classification fixture (112 train records over 8 shared
+512-px PNGs).  Random weights from seed 0, bf16 compute.  It writes
 chip_smoke.py's synthetic vocabulary and records (288 records over 8 shared
-512-px PNGs), then:
+512-px PNGs, or the classification fixture), then:
 
 - loader: the host time per batch of ``BatchLoader`` (the CLI's worker
-  threads: 4 for pretraining, 1 for finetuning; PNG decode, tokenization,
-  masking), alone;
+  threads: 4 for pretraining, 1 for finetuning and classification; PNG
+  decode, tokenization, masking), alone;
 - step: the host-clock time per micro-step of the train step on one
   device-resident batch, ``--steps`` micro-steps after two of warmup,
   ending in a sync;
@@ -53,6 +58,7 @@ from medvill_torch.data.pretrain import (BatchLoader,  # noqa: E402
                                          CXRPretrainDataset)
 from medvill_torch.data.seq2seq import Img2TxtDataset  # noqa: E402
 from medvill_torch.data.tokenization import BertTokenizer  # noqa: E402
+from medvill_torch.train import classify  # noqa: E402
 from medvill_torch.train import finetune as finetune_lib  # noqa: E402
 from medvill_torch.train import pretrain as pretrain_lib  # noqa: E402
 
@@ -92,6 +98,14 @@ def _kind(name: str) -> str:
 def _setup(mode: str, fused_ln: bool, data: str, vocab: str, device):
     """(dataset, batch size, loader workers, train state, train step,
     what one example is called) of ``mode``."""
+    if mode == "classify":
+        cfg, ds, pw, cls_id, sep_id = chip_smoke._clf_setup(data, vocab)
+        cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
+            cfg.bert, fused_ln=fused_ln))
+        return (ds, cfg.batch_size, 1, classify.init_state(
+            cfg, len(cfg.labels), t_total=1000, seed=0, device=device),
+                classify.make_train_step(cfg, pw.to(device), cls_id, sep_id),
+                "examples")
     if mode == "pretrain":
         cfg = PretrainConfig(bert=dataclasses.replace(BertConfig(),
                                                       fused_ln=fused_ln))
@@ -114,7 +128,7 @@ def _setup(mode: str, fused_ln: bool, data: str, vocab: str, device):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["pretrain", "finetune"],
+    ap.add_argument("--mode", choices=["pretrain", "finetune", "classify"],
                     default="pretrain")
     ap.add_argument("--fused_ln", action="store_true",
                     help="BertConfig.fused_ln on (K3/K4)")
@@ -133,7 +147,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="medvill_profile_") as d:
         vocab = os.path.join(d, "vocab.txt")
         chip_smoke.write_vocab(vocab)
-        data = chip_smoke.write_train_data(d, vocab)
+        data = (chip_smoke.write_clf_data(d, vocab) if args.mode == "classify"
+                else chip_smoke.write_train_data(d, vocab))
         dataset, batch_size, workers, state, step, unit = _setup(
             args.mode, args.fused_ln, data, vocab, device)
         loader = BatchLoader(dataset, batch_size, shuffle=True, seed=0,
