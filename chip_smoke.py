@@ -55,7 +55,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    lengths 1..256): against the plain versions in f32 and bf16 at rates 0
    and 0.1, the skipped tile pairs read back and equal to the predicate,
    and timed (bf16, rate 0.1) beside the bound, the plain versions and the
-   library.
+   library.  Each bound and achieved TFLOP/s counts the work the call's
+   masks leave: the visible (query, key) cells for the operations (K1 4,
+   K2 10 per cell and head dimension), and for the bytes q, o, lse (K2
+   also dO and dq, dk, dv) in full but only the k and v rows that some
+   query sees.
 6. kernel-ln-bwd: the fused-LN backward K4 against its plain version and
    against autograd through the plain forward, and K3 with dropout 0.1,
    at the training shape R = 36 * 436 = 15696, H = 768, f32 and bf16,
@@ -680,7 +684,7 @@ def phase_kernel_attn(device) -> dict:
          "k1_rate0_ms": device_ms(k1_rate0, iters=50, reps=3),
          "k2_rate0_ms": device_ms(k2_rate0, iters=20, reps=3)}
     del f32_in, o32, lse32
-    pairs = PRE_B * HEADS * PRE_L * PRE_L * HEAD_DIM
+    pairs = t.pop("pairs")
     tflops = {"k1_tflops": 4 * pairs / t["k1_ms"] * 1e-9,
               "k2_tflops": 10 * pairs / t["k2_ms"] * 1e-9,
               "k1_library_tflops": 4 * pairs / t["k1_library_ms"] * 1e-9,
@@ -766,8 +770,9 @@ def _attn_times(q, k, v, do, spec, kw: dict) -> dict:
     inputs, of their plain versions and of the library calls
     (F.scaled_dot_product_attention with the same -10000 bias at rate 0,
     autograd through it for K2, the backward captured on its forward's
-    stream); eager per-call times; the bounds: K1 reads q, k, v and writes
-    o, K2 reads q, k, v, o, dO and writes dq, dk, dv."""
+    stream); eager per-call times; the bounds, from the cells the masks
+    leave visible (``pairs``: visible cells x heads x 64, the operations'
+    unit; ``visible_cells``: their share of B x L x L)."""
     B, L = q.shape[:2]
     o, lse = fa.attn_fwd(q, k, v, spec, **kw)
 
@@ -800,11 +805,22 @@ def _attn_times(q, k, v, do, spec, kw: dict) -> dict:
     def k2_library():
         torch.autograd.grad(out, (ql, kl, vl), do_l, retain_graph=True)
 
-    elems = B * L * HEADS * HEAD_DIM
-    pairs = B * HEADS * L * L * HEAD_DIM
-    k1_bound, k1_by = bound(4 * elems * 2, 4 * pairs, q.dtype)
-    k2_bound, k2_by = bound(8 * elems * 2, 10 * pairs, q.dtype)
-    return {"k1_ms": device_ms(k1, iters=50, reps=3),
+    # the work this call's masks leave: the visible (query, key) cells, and
+    # the k and v rows some query sees (a key no query sees is never read)
+    vis = bias[:, 0] == 0
+    row = HEADS * HEAD_DIM * q.element_size()
+    pairs = int(vis.sum()) * HEADS * HEAD_DIM
+    full, seen = B * L * row, int(vis.any(1).sum()) * row
+    lse_bytes = B * HEADS * L * 4
+    # K1 reads q, k, v and writes o, lse; K2 reads q, k, v, o, dO, lse and
+    # writes dq, dk, dv
+    k1_bound, k1_by = bound(2 * full + 2 * seen + lse_bytes, 4 * pairs,
+                            q.dtype)
+    k2_bound, k2_by = bound(6 * full + 2 * seen + lse_bytes, 10 * pairs,
+                            q.dtype)
+    return {"pairs": pairs, "visible_cells": pairs / (B * L * L * HEADS
+                                                       * HEAD_DIM),
+            "k1_ms": device_ms(k1, iters=50, reps=3),
             "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
             "k1_library_ms": device_ms(k1_library, iters=50, reps=3),
             "k2_ms": device_ms(k2, iters=20, reps=3),

@@ -10,8 +10,8 @@ convolutions run NCHW inside.  Parameters sit under the reference's
 - The TPU's space-to-depth stem (medvill_tpu resnet.py:25-64) is a layout
   trick with the same math; the port runs the plain 7x7/s2 conv on the same
   weights.
-- BatchNorm (eps 1e-5) runs in f32 on the compute-dtype conv output, like
-  flax ``BatchNorm(dtype=...)``.  In eval mode (``train=False``, serving) it
+- BatchNorm (eps 1e-5) runs in f32 on the compute-dtype conv output (f64
+  on an f64 one), like flax ``BatchNorm(dtype=...)``.  In eval mode (``train=False``, serving) it
   uses the running statistics.  In train mode (``train=True``, pretraining
   with ``train_cnn``) it follows flax ``BatchNorm(use_running_average=False,
   momentum=0.9)`` (medvill_tpu/models/resnet.py:79-82,142-144), not torch's
@@ -45,10 +45,10 @@ BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
         train: bool = False) -> torch.Tensor:
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if not train:
-        return F.batch_norm(x.float(), bn.running_mean, bn.running_var,
-                            bn.weight, bn.bias, False, 0.0, bn.eps).to(dtype)
-    xf = x.float()
+        return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps).to(dtype)
     mean = xf.mean((0, 2, 3))
     var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
     with torch.no_grad():

@@ -1,29 +1,32 @@
 """The training CLIs with their prefetching input pipeline against the
 serial one, in turns, on one NVIDIA GPU.
 
-    python tools/torch_loader_ab.py [--rounds 2] \
-        [--cli pretrain finetune classify] [--variants serial prefetch] \
-        [--out chiprun_out/loader_ab]
+    python tools/torch_loader_ab.py [--rounds 3] \
+        [--cli pretrain finetune classify] [--out DIR]
 
 "prefetch" runs a CLI as it is: ``dispatch_loader`` builds the next
 batches on a background thread and copies them to the card from pinned
 memory on a side stream.  "serial" replaces the CLI's ``dispatch_loader``
 by a generator that fetches each batch and copies it to the card in the
 training loop (``torch.as_tensor(v).to(device, non_blocking=True)``), the
-CLIs' pipeline before the prefetching loader.  "prefetch-switch" is
-"prefetch" with the interpreter's thread switch interval at 0.5 ms (5 ms
-by default), which shortens a launch's wait for the GIL while the loader
-thread runs Python.  Each round runs the variants forward, then backward
-(serial, prefetch, prefetch, serial); each run trains 2 epochs from random
-weights
+CLIs' pipeline before the prefetching loader.  Each round runs serial,
+prefetch, prefetch, serial; each run trains 2 epochs from random weights
 and the rate is the second epoch's, as the CLI writes it to
-metrics.jsonl: pairs/s (pretrain: chip_smoke.py's 288 records, batch 36,
-4 loader threads), reports/s (finetune: its first 96 records, batch 4,
-``{"fused_ln": true}``, 1 thread) or examples/s (classify: chip_smoke.py's
-fixture with 4 train batches of 56, 1 thread, the valid split evaluated
-after each epoch but outside the epoch's time).  One JSON line per run
-and one summary per CLI; the CLIs' logs go to ``--out``.  Needs a CUDA
-device.
+metrics.jsonl: pairs/s (pretrain: chip_smoke.py's 288 records repeated
+SCALE times, batch 36, 4 loader threads: 64 micro-steps), reports/s
+(finetune: its first 96 records repeated SCALE times, batch 4,
+``{"fused_ln": true}``, 1 thread: 192 micro-steps) or examples/s
+(classify: chip_smoke.py's fixture with 4 x SCALE train batches of 56, 1
+thread, the valid split evaluated after each epoch but outside the
+epoch's time).  An epoch takes ~16-22 s on an H100, long enough that
+runs of one variant agree within a few percent.  The
+records share chip_smoke.py's images, and every record is decoded and
+tokenized anew.  One JSON line per run and one summary per CLI: each
+variant's rates, mean and spread (largest over smallest), and prefetch
+over serial in each round; the CLIs' logs go to ``--out``.  Needs a CUDA
+device.  Each run writes its CLI's checkpoints (about 1 GB, deleted after
+the run); where a machine caps the bytes written, run one ``--cli`` at a
+time (the three CLIs at 3 rounds write ~46 GB).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -44,6 +48,8 @@ import chip_smoke  # noqa: E402
 from medvill_torch.cli import (classification_main,  # noqa: E402
                                finetune_main, pretrain_main)
 
+VARIANTS = ["serial", "prefetch"]
+SCALE = 8  # repeats of each CLI's records
 CLIS = {"pretrain": (pretrain_main, "pairs_per_s"),
         "finetune": (finetune_main, "examples_per_s"),
         "classify": (classification_main, "examples_per_s")}
@@ -78,11 +84,9 @@ def rate(cli: str, result) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--cli", nargs="+", default=list(CLIS),
                     choices=list(CLIS))
-    ap.add_argument("--variants", nargs="+", default=["serial", "prefetch"],
-                    choices=["serial", "prefetch", "prefetch-switch"])
     ap.add_argument("--out", type=str, default="chiprun_out/loader_ab")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -95,30 +99,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="medvill_loader_ab_") as d:
         vocab = os.path.join(d, "vocab.txt")
         chip_smoke.write_vocab(vocab)
-        data = {"pretrain": chip_smoke.write_train_data(d, vocab),
-                "classify": chip_smoke.write_clf_data(d, vocab,
-                                                      train_batches=4),
+        pretrain = chip_smoke.write_train_data(d, vocab)
+        data = {"pretrain": os.path.join(d, "pretrain.jsonl"),
+                "classify": chip_smoke.write_clf_data(
+                    d, vocab, train_batches=4 * SCALE),
                 "config": os.path.join(d, "config.json"),
                 "finetune": os.path.join(d, "finetune.jsonl")}
         with open(data["config"], "w") as f:
             json.dump({"fused_ln": True}, f)
-        with open(data["pretrain"]) as f, open(data["finetune"], "w") as g:
-            g.writelines(line for _, line in zip(range(96), f))
+        with open(pretrain) as f:
+            lines = f.readlines()
+        for name, part in (("pretrain", lines), ("finetune", lines[:96])):
+            with open(data[name], "w") as f:
+                f.writelines(part * SCALE)
         run = 0
         for cli in args.cli:
             module = CLIS[cli][0]
-            rates = {v: [] for v in args.variants}
+            rates = {v: [] for v in VARIANTS}
             for _ in range(args.rounds):
-                for variant in args.variants + args.variants[::-1]:
+                for variant in VARIANTS + VARIANTS[::-1]:
                     run += 1
                     log = os.path.join(args.out, f"{cli}_{run}_{variant}.log")
-                    patch = (serial_loader if variant == "serial"
-                             else module.dispatch_loader)
                     original = module.dispatch_loader
-                    module.dispatch_loader = patch
-                    interval = sys.getswitchinterval()
-                    if variant == "prefetch-switch":
-                        sys.setswitchinterval(5e-4)
+                    if variant == "serial":
+                        module.dispatch_loader = serial_loader
                     try:
                         with open(log, "w") as f, \
                                 contextlib.redirect_stdout(f):
@@ -126,18 +130,25 @@ def main() -> int:
                                                           data, run))
                     finally:
                         module.dispatch_loader = original
-                        sys.setswitchinterval(interval)
+                    shutil.rmtree(os.path.join(d, f"{cli}_{run}"),
+                                  ignore_errors=True)
                     r = rate(cli, result)
                     rates[variant].append(r)
                     print(json.dumps({"cli": cli, "run": run,
                                       "variant": variant, "rate": r}),
                           flush=True)
                     torch.cuda.empty_cache()
-            base = np.mean(rates[args.variants[0]])
+            serial, prefetch = (np.array(rates[v]) for v in VARIANTS)
             print(json.dumps({
                 "cli": cli, "unit": CLIS[cli][1], **rates,
-                f"over_{args.variants[0]}": {
-                    v: float(np.mean(r) / base) for v, r in rates.items()}}),
+                "mean": {v: float(np.mean(r)) for v, r in rates.items()},
+                "spread": {v: float(np.max(r) / np.min(r))
+                           for v, r in rates.items()},
+                "prefetch_over_serial": float(prefetch.mean() / serial.mean()),
+                "prefetch_over_serial_by_round": [
+                    float(p / s) for p, s in zip(
+                        prefetch.reshape(-1, 2).mean(1),
+                        serial.reshape(-1, 2).mean(1))]}),
                 flush=True)
     return 0
 
