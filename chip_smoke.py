@@ -55,7 +55,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    lengths 1..256): against the plain versions in f32 and bf16 at rates 0
    and 0.1, the skipped tile pairs read back and equal to the predicate,
    and timed (bf16, rate 0.1) beside the bound, the plain versions and the
-   library.  Each bound and achieved TFLOP/s counts the work the call's
+   library.  Then the same at the retrieval step's call (B = 140: 70
+   positives and 70 negatives, L = 436, FULL, img_block 182, text lengths
+   1..254 from a seeded numpy draw), and K1 at its scoring call (B = 70,
+   rate 0) against its plain version and timed.  Each bound and achieved TFLOP/s counts the work the call's
    masks leave: the visible (query, key) cells for the operations (K1 4,
    K2 10 per cell and head dimension), and for the bytes q, o, lse (K2
    also dO and dq, dk, dv) in full but only the k and v rows that some
@@ -133,9 +136,31 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    24 K4 launches per micro-step) and peak memory; then train-parity's f32
    leg on one step at batch 4 with the trunk trained.
 
+16. retrieve: python -m medvill_torch.cli.retrieval_main's entry point at
+   its defaults (CXRBERT: BERT-base, the ResNet-50 trunk frozen at 512 px
+   with 180 random-pixel embeds, FULL over L = 436, 70 label-conditioned
+   pairs = 140 rows, AdamW lr 1e-5), --load_pretrained_model the train
+   phase's model.0.bin, one epoch over 140 records (2 micro-steps),
+   --eval_during_training on 2 pools and --do_test on 3, each of 140
+   candidates (--eval_len_size 140: the pool size is data; the CLI's
+   default is 759): exactly 12 K1 + 12 K2 per micro-step and 12 K1 per
+   scored batch of 70, no K3/K4; a finite loss; Hits@k and MRR in [0, 1];
+   one rank-dump line per query; model.0.bin loads strictly; examples/s
+   (2 x 70 per micro-step), candidates/s, peak memory.
+17. retr-steps: the retrieval step on one device-resident batch of 140
+   rows: steady ms per micro-step and peak memory, the score step's ms per
+   batch of 70; then train-parity's f32 leg on one step of 2 pairs
+   (fused_ln on, dropout 0.1, the kernels against the plain path).
+18. retrieve-cnn: the retrieval CLI's --CXRBERT false branch (CNN_BERT,
+   the trunk trained) at 32 pairs, the largest batch that fits (70 pairs,
+   140 trained images, would need ~125 GiB), one epoch and the test pool:
+   no kernel runs, a finite loss, metrics in [0, 1], model.0.bin in the
+   CNN_BERT layout; examples/s, peak memory.
+
 Then the line of kernels (each with its launches by path and, beside the
 training shape's figures, its figures at the finetune shape and K1/K2's at
-the classification shape), and last
+the classification and retrieval shapes, K1's at the scoring call), and
+last
 {"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
@@ -161,10 +186,13 @@ import torch.nn.functional as F
 
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
 from medvill_torch.cli import (classification_main, decode_main,
-                               finetune_main, pretrain_main, serve_main)
+                               finetune_main, pretrain_main, retrieval_main,
+                               serve_main)
 from medvill_torch.config import (BertConfig, ImageEncoderConfig, MaskVariant,
                                   PretrainConfig)
-from medvill_torch.convert import load_vlp_checkpoint
+from medvill_torch.convert import (load_cnn_bert_checkpoint,
+                                   load_cxrbert_checkpoint,
+                                   load_vlp_checkpoint)
 from medvill_torch.data import images as image_lib
 from medvill_torch.data import masks
 from medvill_torch.data.classification import (ClassificationDataset,
@@ -173,6 +201,7 @@ from medvill_torch.data.classification import (ClassificationDataset,
                                                synthetic_clf_records)
 from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
                                          collate)
+from medvill_torch.data.retrieval import CXRRetrievalDataset, collate_pairs
 from medvill_torch.data.seq2seq import Img2TxtDataset, Seq2seqPreprocessor
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.data.vqa import VQADataset, synthetic_vqa_entries
@@ -187,6 +216,7 @@ from medvill_torch.ops.dropout import DropoutRNG
 from medvill_torch.train import classify
 from medvill_torch.train import finetune as finetune_lib
 from medvill_torch.train import pretrain as pretrain_lib
+from medvill_torch.train import retrieve as retrieve_lib
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
@@ -209,6 +239,18 @@ CHEXPERT = ("Atelectasis", "Cardiomegaly", "Consolidation", "Edema",
             "Enlarged Cardiomediastinum", "Fracture", "Lung Lesion",
             "Lung Opacity", "No Finding", "Pleural Effusion", "Pleural Other",
             "Pneumonia", "Pneumothorax", "Support Devices")
+# retrieval: the CLI's defaults (70 positive + 70 negative pairs = 140
+# rows, 180 of 256 fibers, seq_len 253 so L = 436, FULL), scored at 70
+RET_PAIRS, RET_B = 70, 140
+RET_L, RET_IMG_BLOCK = PRE_L, PRE_IMG_BLOCK
+RET_TRAIN_RECORDS = 2 * RET_PAIRS          # 2 micro-steps
+# the pools: --eval_len_size candidates per query (the cut: the CLI's
+# default is 759), 2 valid and 3 test queries
+RET_POOL, RET_VALID_QUERIES, RET_TEST_QUERIES = 140, 2, 3
+# the CNN_BERT branch trains the trunk: ~0.79 GiB of autograd state per
+# 512-px image, so the default 70 pairs (140 images) need ~125 GiB; 32
+# pairs (64 images) peak near 60 GiB
+RET_CNN_PAIRS = 32
 TRAIN_RECORDS, TRAIN_IMAGES = 288, 8
 MICRO_STEPS = TRAIN_RECORDS // PRE_B
 # finetuning: the finetune CLI's defaults over the first FT_RECORDS records
@@ -714,6 +756,7 @@ def phase_kernel_attn(device) -> dict:
     del q, k, v, do, o, lse
     ft = _finetune_shape_attn(device, gen)
     mmbt = _mmbt_shape_attn(device, gen)
+    retr = _retrieval_shape_attn(device, gen)
     k2_err = max(main_errs[n] for n in ("dq", "dk", "dv"))
     return {"K1": {"max_abs_err": main_errs["o"], "ms": t["k1_ms"],
                    "plain_ms": t["k1_plain_ms"], "bound_ms": t["k1_bound_ms"],
@@ -721,7 +764,9 @@ def phase_kernel_attn(device) -> dict:
                    "library_ms": t["k1_library_ms"],
                    "tflops": tflops["k1_tflops"], "f32_ms": t["k1_f32_ms"],
                    "skipped_tile_pairs": skipped_share,
-                   "finetune_shape": ft["K1"], "mmbt_shape": mmbt["K1"]},
+                   "finetune_shape": ft["K1"], "mmbt_shape": mmbt["K1"],
+                   "retrieval_shape": retr["K1"],
+                   "score_shape": retr["score"]},
             "K2": {"max_abs_err": k2_err, "ms": t["k2_ms"],
                    "plain_ms": t["k2_plain_ms"], "bound_ms": t["k2_bound_ms"],
                    "bound_by": t["k2_bound_by"],
@@ -729,7 +774,8 @@ def phase_kernel_attn(device) -> dict:
                    "library_eager_ms": t["k2_library_eager_ms"],
                    "tflops": tflops["k2_tflops"], "f32_ms": t["k2_f32_ms"],
                    "skipped_tile_pairs": skipped_share,
-                   "finetune_shape": ft["K2"], "mmbt_shape": mmbt["K2"]}}
+                   "finetune_shape": ft["K2"], "mmbt_shape": mmbt["K2"],
+                   "retrieval_shape": retr["K2"]}}
 
 
 def _attn_errs(q, k, v, do, spec, kw: dict, what: str) -> tuple:
@@ -765,14 +811,15 @@ def _worst(worst: dict, key: str, errs: dict, tol: dict) -> None:
                                      e / tol[name])
 
 
-def _attn_times(q, k, v, do, spec, kw: dict) -> dict:
+def _attn_times(q, k, v, do, spec, kw: dict, backward: bool = True) -> dict:
     """Device times (CUDA graphs) of K1 and K2 on bf16 [B, L, heads, 64]
     inputs, of their plain versions and of the library calls
     (F.scaled_dot_product_attention with the same -10000 bias at rate 0,
     autograd through it for K2, the backward captured on its forward's
     stream); eager per-call times; the bounds, from the cells the masks
     leave visible (``pairs``: visible cells x heads x 64, the operations'
-    unit; ``visible_cells``: their share of B x L x L)."""
+    unit; ``visible_cells``: their share of B x L x L).  Without
+    ``backward``, K1's figures only."""
     B, L = q.shape[:2]
     o, lse = fa.attn_fwd(q, k, v, spec, **kw)
 
@@ -818,19 +865,21 @@ def _attn_times(q, k, v, do, spec, kw: dict) -> dict:
                             q.dtype)
     k2_bound, k2_by = bound(6 * full + 2 * seen + lse_bytes, 10 * pairs,
                             q.dtype)
-    return {"pairs": pairs, "visible_cells": pairs / (B * L * L * HEADS
-                                                       * HEAD_DIM),
-            "k1_ms": device_ms(k1, iters=50, reps=3),
-            "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
-            "k1_library_ms": device_ms(k1_library, iters=50, reps=3),
-            "k2_ms": device_ms(k2, iters=20, reps=3),
+    fwd = {"pairs": pairs, "visible_cells": pairs / (B * L * L * HEADS
+                                                      * HEAD_DIM),
+           "k1_ms": device_ms(k1, iters=50, reps=3),
+           "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
+           "k1_library_ms": device_ms(k1_library, iters=50, reps=3),
+           "k1_eager_ms": eager_ms(k1, iters=20, warmup=3),
+           "k1_bound_ms": k1_bound, "k1_bound_by": k1_by}
+    if not backward:
+        return fwd
+    return {**fwd, "k2_ms": device_ms(k2, iters=20, reps=3),
             "k2_plain_ms": device_ms(k2_plain, iters=3, reps=2),
             "k2_library_ms": device_ms(k2_library, iters=20, reps=3,
                                        stream=lib_stream),
             "k2_library_eager_ms": eager_ms(k2_library, iters=10, warmup=2),
-            "k1_eager_ms": eager_ms(k1, iters=20, warmup=3),
             "k2_eager_ms": eager_ms(k2, iters=10, warmup=2),
-            "k1_bound_ms": k1_bound, "k1_bound_by": k1_by,
             "k2_bound_ms": k2_bound, "k2_bound_by": k2_by}
 
 
@@ -906,6 +955,84 @@ def _mmbt_shape_attn(device, gen) -> dict:
                   "skipped_tile_pairs": skipped}
             for kid, n, err in (("K1", "k1", errs["o"]),
                                 ("K2", "k2", g_err))}
+
+
+def _retrieval_inputs(device, gen, B, dtype, rng: np.random.Generator):
+    """q, k, v, dO at the retrieval call and its FULL spec, text lengths
+    uniform in 1..254 from the numpy ``rng``."""
+    q, k, v, do, _ = _attn_inputs(device, gen, B, RET_L, RET_IMG_BLOCK,
+                                  fa.FAMILY_PRETRAIN, int(MaskVariant.FULL),
+                                  dtype)
+    txt = rng.integers(1, RET_L - RET_IMG_BLOCK + 1, B)
+    spec = torch.tensor(np.stack([np.zeros_like(txt), txt], 1),
+                        dtype=torch.int32, device=device)
+    return q, k, v, do, spec
+
+
+def _retrieval_shape_attn(device, gen) -> dict:
+    """K1/K2 at the retrieval training call (B = 140: 70 positives and 70
+    negatives; L = 436, FULL, img_block 182, text lengths uniform in
+    1..254 from a seeded numpy draw) against their plain versions in f32
+    and bf16 at rates 0 and 0.1 (_attn_errs); the skipped tile pairs read
+    back and equal to the predicate; times of the training call (bf16,
+    rate 0.1; _attn_times); then K1 at the scoring call (B = 70, rate 0,
+    bf16): against its plain version and timed beside its bound, its plain
+    version and the library.  Returns the kernels-line entries."""
+    rng = np.random.default_rng(SEED + 8)
+    worst: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            q, k, v, do, spec = _retrieval_inputs(device, gen, RET_B, dtype,
+                                                  rng)
+            kw = dict(img_block=RET_IMG_BLOCK, l_real=RET_L,
+                      family=fa.FAMILY_PRETRAIN, rate=rate, seed=10)
+            errs, tol = _attn_errs(q, k, v, do, spec, kw,
+                                   f"retrieval shape {dtype} rate {rate}")
+            _worst(worst, f"{str(dtype)[6:]}/rate{rate}", errs, tol)
+            del q, k, v, do
+    q, k, v, do, spec = _retrieval_inputs(device, gen, RET_B, torch.bfloat16,
+                                          rng)
+    kw = dict(img_block=RET_IMG_BLOCK, l_real=RET_L,
+              family=fa.FAMILY_PRETRAIN, rate=0.1, seed=11)
+    errs, _ = _attn_errs(q, k, v, do, spec, kw, "retrieval timed call")
+    want = masks.tile_skip_grid(fa.FAMILY_PRETRAIN, spec, RET_IMG_BLOCK,
+                                RET_L, RET_L, fa.TILE)[:, None].to(device)
+    read = fa.skipped_tiles(q, k, v, do, spec, img_block=RET_IMG_BLOCK,
+                            l_real=RET_L, family=fa.FAMILY_PRETRAIN)
+    for name, got in read.items():
+        check(torch.equal(got, want.expand_as(got)),
+              f"retrieval shape: {name} kernel skipped {int(got.sum())} "
+              f"tile pairs, the predicate {int(want.sum()) * HEADS}")
+    skipped = read["fwd"].float().mean().item()
+    t = _attn_times(q, k, v, do, spec, kw)
+    del q, k, v, do
+    # the scoring call: K1 alone, rate 0, on 70 candidates
+    q, k, v, do, sspec = _retrieval_inputs(device, gen, RET_PAIRS,
+                                           torch.bfloat16, rng)
+    skw = dict(img_block=RET_IMG_BLOCK, l_real=RET_L,
+               family=fa.FAMILY_PRETRAIN, rate=0.0, seed=0)
+    score_err = _attn_errs(q, k, v, do, sspec, skw, "scoring call")[0]["o"]
+    st = _attn_times(q, k, v, do, sspec, skw, backward=False)
+    emit({"phase": "kernel-attn",
+          "timed": f"retrieval B={RET_B} L={RET_L} 12x64 bf16 FULL rate 0.1",
+          **t, "cases": 4, "max_abs_err": worst, "skipped_tile_pairs": skipped,
+          "skips_read_back_equal_predicate": True,
+          "score_call": {"timed": f"B={RET_PAIRS} bf16 FULL rate 0",
+                         "max_abs_err": score_err, **st}})
+    g_err = max(errs[n] for n in ("dq", "dk", "dv"))
+    out = {kid: {"max_abs_err": err, "ms": t[f"{n}_ms"],
+                 "plain_ms": t[f"{n}_plain_ms"],
+                 "bound_ms": t[f"{n}_bound_ms"],
+                 "bound_by": t[f"{n}_bound_by"],
+                 "library_ms": t[f"{n}_library_ms"],
+                 "skipped_tile_pairs": skipped}
+           for kid, n, err in (("K1", "k1", errs["o"]), ("K2", "k2", g_err))}
+    out["score"] = {"max_abs_err": score_err, "ms": st["k1_ms"],
+                    "plain_ms": st["k1_plain_ms"],
+                    "bound_ms": st["k1_bound_ms"],
+                    "bound_by": st["k1_bound_by"],
+                    "library_ms": st["k1_library_ms"]}
+    return out
 
 
 def _attn_yardstick(device, gen) -> dict:
@@ -2025,6 +2152,238 @@ def phase_clf_steps(data: str, vocab: str, device) -> dict:
     return counts
 
 
+def write_retrieval_data(d: str, vocab: str) -> dict:
+    """The retrieval fixture under ``d/retrieval_data``: train.jsonl
+    (RET_TRAIN_RECORDS records over 4 labels, reports of 20-300 words of
+    the synthetic vocabulary, so the text lengths span the 254-position
+    window), valid.jsonl and test.jsonl (RET_VALID_QUERIES and
+    RET_TEST_QUERIES pools of RET_POOL candidates, the first of each
+    aligned), over 8 shared 512-px PNGs.  Returns the three paths."""
+    from PIL import Image
+
+    data = os.path.join(d, "retrieval_data")
+    os.makedirs(data, exist_ok=True)
+    rng = np.random.default_rng(SEED + 7)
+    for j in range(8):
+        Image.fromarray(rng.integers(0, 255, (IMG, IMG), np.uint8),
+                        "L").save(os.path.join(data, f"img{j}.png"),
+                                  format="PNG")
+    with open(vocab) as f:
+        words = [w.strip() for w in f][5:]
+
+    def record(i: int, **kw) -> dict:
+        text = " ".join(words[j] for j in rng.integers(
+            0, len(words), int(rng.integers(20, 301))))
+        return dict(id=str(i), label=f"label{rng.integers(4)}", text=text,
+                    img=f"img{rng.integers(8)}.png", **kw)
+
+    paths = {}
+    for name, n, pool in (("train", RET_TRAIN_RECORDS, None),
+                          ("valid", RET_VALID_QUERIES * RET_POOL, RET_POOL),
+                          ("test", RET_TEST_QUERIES * RET_POOL, RET_POOL)):
+        paths[name] = os.path.join(data, f"{name}.jsonl")
+        with open(paths[name], "w") as f:
+            for i in range(n):
+                kw = {} if pool is None else {
+                    "is_aligned": [int(i % pool == 0)]}
+                f.write(json.dumps(record(i, **kw)) + "\n")
+    return paths
+
+
+def _retrieval_argv(d: str, vocab: str, paths: dict, out: str) -> list:
+    """The retrieval CLI's arguments: its defaults, the train phase's
+    pretrain checkpoint, one epoch, the valid pool during training and the
+    test pool after it, RET_POOL candidates per query."""
+    return ["--train_dataset", paths["train"],
+            "--label_conditioned_valid_dataset", paths["valid"],
+            "--label_conditioned_test_dataset", paths["test"],
+            "--vocab_file", vocab, "--output_path", out,
+            "--load_pretrained_model",
+            os.path.join(d, "pretrain_run", "model.0.bin"),
+            "--epochs", "1", "--eval_during_training", "true",
+            "--do_test", "true", "--eval_len_size", str(RET_POOL),
+            "--device", "cuda"]
+
+
+def _check_retrieval_metrics(res: dict, what: str) -> None:
+    hits = res["hits"]["i2t_retrieval"]
+    check(all(0.0 <= x <= 1.0 for x in [res["mrr"], *hits.values()]),
+          f"{what} metrics {res}")
+
+
+def phase_retrieve(d: str, vocab: str, device) -> tuple:
+    """The retrieval CLI's entry point at its defaults (CXRBERT branch);
+    returns (launch counts, the fixture's paths)."""
+    paths = write_retrieval_data(d, vocab)
+    out = os.path.join(d, "retrieval_run")
+    argv = _retrieval_argv(d, vocab, paths, out)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = retrieval_main.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row, test = res["epochs"][0], res["test"]
+    steps = RET_TRAIN_RECORDS // RET_PAIRS
+    check(row["micro_steps"] == steps and np.isfinite(row["train_loss"]),
+          f"retrieve epoch {row}")
+    check(res["loaded"] == argv[argv.index("--load_pretrained_model") + 1],
+          f"retrieve loaded {res['loaded']}")
+    queries = RET_VALID_QUERIES + RET_TEST_QUERIES
+    score_batches = queries * RET_POOL // RET_PAIRS
+    want = {"K1": 12 * steps + 12 * score_batches, "K2": 12 * steps,
+            "K3": 0, "K4": 0}
+    check(counts == want, f"retrieve launches {counts} != {want}")
+    check(0.0 <= row["mrr"] <= 1.0, f"retrieve valid mrr {row}")
+    _check_retrieval_metrics(test, "retrieve test")
+    with open(os.path.join(out, "rank_result_at_eval.json")) as f:
+        ranks = [json.loads(line) for line in f]
+    check(len(ranks) == queries, f"{len(ranks)} rank lines for {queries} "
+                                 "queries")
+    args = retrieval_main.build_parser().parse_args(argv)
+    model = retrieve_lib.build_model(retrieval_main.config_from_args(args))
+    check(load_cxrbert_checkpoint(model, os.path.join(out, "model.0.bin"))
+          == [], "model.0.bin holds keys the model lacks")
+    del model
+    emit({"phase": "retrieve", "train_records": RET_TRAIN_RECORDS,
+          "pairs": RET_PAIRS, "rows": RET_B, "seq": RET_L,
+          "micro_steps": steps, "train_loss": row["train_loss"],
+          "train_acc": row["train_acc"],
+          "examples_per_s": row["examples_per_s"],
+          "ms_per_micro_step": row["epoch_time_s"] / steps * 1e3,
+          "epoch_s": row["epoch_time_s"], "wall_s": wall,
+          "peak_mem_gib": peak,
+          "pools": {"eval_len_size": RET_POOL,
+                    "valid_queries": RET_VALID_QUERIES,
+                    "test_queries": RET_TEST_QUERIES},
+          "valid": {"mrr": row["mrr"],
+                    "candidates_per_s": row["candidates_per_s"]},
+          "test": {"mrr": test["mrr"], **test["hits"]["i2t_retrieval"],
+                   "candidates_per_s": test["candidates_per_s"]},
+          "rank_lines": len(ranks), "launches": counts,
+          "launches_per_micro_step": {"K1": 12, "K2": 12},
+          "k1_per_score_batch": 12})
+    return counts, paths
+
+
+def _retrieval_batch(paths: dict, vocab: str, cfg, pairs: int, device):
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    ds = CXRRetrievalDataset(paths["train"], tok, cfg, is_train=True,
+                             seed=SEED)
+    return pretrain_lib.to_device(collate_pairs([ds[i]
+                                                 for i in range(pairs)]),
+                                  device)
+
+
+def _retr_parity_step(cfg, paths: dict, vocab: str, device) -> dict:
+    """One retrieval step at full width, 2 pairs (4 rows), fused_ln on,
+    dropout 0.1, in f32, by both paths (_kernel_and_plain)."""
+    cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, compute_dtype="float32", fused_ln=True))
+    batch = _retrieval_batch(paths, vocab, cfg, 2, device)
+    model = retrieve_lib.build_model(cfg)
+    init_weights(model, SEED)
+    model.to(device)
+    pix = retrieve_lib.score_pixel_indices(cfg).to(device)
+
+    def loss_fn(attention_fn):
+        return retrieve_lib.loss_and_metrics(
+            model, batch, DropoutRNG(SEED + 3, device), pix, cfg,
+            attention_fn=attention_fn)[0]
+
+    return _kernel_and_plain(
+        model, loss_fn, _plain_attention(
+            batch["mask_spec"], RET_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+            cfg.bert.attention_probs_dropout_prob), "retrieve float32")
+
+
+def phase_retr_steps(paths: dict, vocab: str, device) -> None:
+    """The retrieval step on one device-resident batch of RET_PAIRS pairs
+    (RET_B rows) at the CLI's defaults: steady ms per micro-step (2 of
+    warmup, 4 timed; exactly 12 K1 + 12 K2 per micro-step) and peak memory;
+    the steady ms of the score step on RET_PAIRS candidates (12 K1 each);
+    then train-parity's f32 leg on one step of 2 pairs (TF32 off)."""
+    cfg = retrieval_main.config_from_args(
+        retrieval_main.build_parser().parse_args(["--vocab_file", vocab]))
+    batch = _retrieval_batch(paths, vocab, cfg, RET_PAIRS, device)
+    state = retrieve_lib.init_state(cfg, seed=SEED, device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step_ms = _steady_ms(state, retrieve_lib.make_train_step(cfg), batch)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = 2 + 4
+    want = {"K1": 12 * n, "K2": 12 * n, "K3": 0, "K4": 0}
+    check(counts == want, f"retr-steps launches {counts} != {want}")
+    score_step = retrieve_lib.make_score_step(cfg)
+    half = {k: v[:RET_PAIRS] for k, v in batch.items()}
+    reset_counts()
+    score_ms = _steady_ms(state.model, lambda m, b, g: score_step(m, b),
+                          half)
+    check(read_counts()["K1"] == 12 * n, "score step launches")
+    del state, batch, half
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    legs = {"float32": _retr_parity_step(cfg, paths, vocab, device)}
+    rec = {"phase": "retr-steps", "pairs": RET_PAIRS, "rows": RET_B,
+           "seq": RET_L, "steady_ms_per_micro_step": step_ms,
+           "steady_examples_per_s": RET_B / step_ms * 1e3,
+           "peak_mem_gib": peak, "launches": counts,
+           "score_ms_per_batch": score_ms,
+           "steady_candidates_per_s": RET_PAIRS / score_ms * 1e3,
+           "parity": {"tf32": False, "pairs": 2, "dropout": 0.1,
+                      "fused_ln": True}}
+    _check_parity_legs(legs, rec["parity"], "retr-steps")
+    emit(rec)
+
+
+def phase_retrieve_cnn(d: str, vocab: str, paths: dict, device) -> None:
+    """The retrieval CLI's --CXRBERT false branch (CNN_BERT, the trunk
+    trained) at RET_CNN_PAIRS pairs, the largest batch that fits (the
+    default 70 does not), one epoch and the test pool: finite loss,
+    metrics in [0, 1], model.0.bin in the CNN_BERT layout loading strictly,
+    no kernel launched (its text encoder takes the dense bias); peak
+    memory, examples/s."""
+    out = os.path.join(d, "retrieval_cnn_run")
+    argv = ["--train_dataset", paths["train"],
+            "--label_conditioned_test_dataset", paths["test"],
+            "--vocab_file", vocab, "--output_path", out,
+            "--CXRBERT", "false", "--batch_size", str(RET_CNN_PAIRS),
+            "--epochs", "1", "--do_test", "true",
+            "--eval_len_size", str(RET_POOL), "--device", "cuda"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = retrieval_main.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = res["epochs"][0]
+    steps = RET_TRAIN_RECORDS // RET_CNN_PAIRS
+    check(row["micro_steps"] == steps and np.isfinite(row["train_loss"]),
+          f"retrieve-cnn epoch {row}")
+    check(not any(counts.values()), f"retrieve-cnn launches {counts}")
+    _check_retrieval_metrics(res["test"], "retrieve-cnn test")
+    args = retrieval_main.build_parser().parse_args(argv)
+    model = retrieve_lib.build_cnn_model(
+        retrieval_main.config_from_args(args))
+    check(load_cnn_bert_checkpoint(model, os.path.join(out, "model.0.bin"))
+          == [], "CNN_BERT model.0.bin holds keys the model lacks")
+    emit({"phase": "retrieve-cnn", "pairs": RET_CNN_PAIRS,
+          "rows": 2 * RET_CNN_PAIRS, "default_pairs": 70,
+          "micro_steps": steps, "train_loss": row["train_loss"],
+          "examples_per_s": row["examples_per_s"],
+          "ms_per_micro_step": row["epoch_time_s"] / steps * 1e3,
+          "wall_s": wall, "peak_mem_gib": peak,
+          "test": {"mrr": res["test"]["mrr"],
+                   "candidates_per_s": res["test"]["candidates_per_s"]},
+          "launches": counts})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -2059,10 +2418,14 @@ def main() -> int:
         classify_counts = phase_classify(d, vocab, device)
         clf_fused_counts = phase_clf_steps(os.path.join(d, "clf_data"),
                                            vocab, device)
+        retrieve_counts, ret_paths = phase_retrieve(d, vocab, device)
+        phase_retr_steps(ret_paths, vocab, device)
+        phase_retrieve_cnn(d, vocab, ret_paths, device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
              "train-fused": fused_counts, "finetune": finetune_counts,
              "decode": decode_counts, "classify": classify_counts,
-             "classify-fused": clf_fused_counts}
+             "classify-fused": clf_fused_counts,
+             "retrieve": {k: retrieve_counts[k] for k in ("K1", "K2")}}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",

@@ -20,7 +20,9 @@ core/torch_init.py:230-296) and of the classification CLI's
   in a directory;
 - ``merge_pretrained_into_mmbt``: a non-strict load of a pretrain file
   into a ``MultimodalBertClf``: every ``enc.*`` tensor whose name and shape
-  the model shares.
+  the model shares;
+- ``restore_pretrained``: a ``--load_pretrained_model``-style path into a
+  model through a ``torch_init`` loader (core/checkpoint.py:147-190).
 """
 from __future__ import annotations
 
@@ -164,3 +166,36 @@ def merge_pretrained_into_mmbt(model: nn.Module, path: str) -> List[str]:
            and tuple(v.shape) == tuple(own[k].shape)}
     model.load_state_dict(new, strict=False)
     return sorted(new)
+
+
+def restore_pretrained(model: nn.Module, path: str, torch_loader, logger,
+                       what: str = "pretrained") -> str:
+    """Weights for ``model`` from ``path`` through ``torch_loader(model,
+    file)`` (a ``torch_init.init_*_from_torch``): a torch checkpoint (a
+    file, or a directory holding ``pytorch_model.bin``, the layout of the
+    published MedViLL weights, reference retrieval.py:17-24), or a
+    directory of the port's own run, through its latest
+    ``model.<epoch>.bin`` (the counterpart of the JAX package's orbax run
+    directory).  Anything else raises FileNotFoundError: a mistyped path
+    must not evaluate or train the random init.  Only weights move, so an
+    optimizer built over ``model`` starts fresh.  Returns the file read."""
+    from medvill_torch import torch_init
+
+    if torch_init.is_torch_checkpoint(path):
+        file = (os.path.join(path, "pytorch_model.bin")
+                if os.path.isdir(path) else path)
+        torch_loader(model, file)
+        logger.info("loaded torch %s checkpoint %s", what, file)
+        return file
+    try:
+        file = latest_pretrain_file(path)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"--{what} path {path!r} is neither a torch checkpoint (a "
+            ".bin/.pth file or a directory with pytorch_model.bin) nor a "
+            "run directory with model.<epoch>.bin files; convert an orbax "
+            "run with `python -m medvill_tpu.cli.export_main` first"
+        ) from None
+    torch_loader(model, file)
+    logger.info("restored %s weights from %s", what, file)
+    return file

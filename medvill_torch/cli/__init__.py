@@ -1,4 +1,9 @@
-"""Shared helpers for the CLI entry points (copies of medvill_tpu/cli's)."""
+"""Shared helpers for the CLI entry points (copies of medvill_tpu/cli's).
+
+The entry points, each ``python -m medvill_torch.cli.<name>``:
+``serve_main``, ``pretrain_main``, ``finetune_main``, ``decode_main``,
+``classification_main`` and ``retrieval_main``.
+"""
 
 
 def str2bool(v):

@@ -27,10 +27,15 @@ micro-steps x batch / epoch time).  It stops after ``--patience`` epochs
 without improvement.  ``--do_test`` restores ``model.best.bin`` and
 evaluates ``Test.jsonl``.
 
+``--bert_init_path`` (an HF BERT file into ``enc``) and
+``--resnet_init_path`` (a torchvision ResNet-50 file into the trunk)
+initialize the model before the ``--loaddir`` merge, in the JAX CLI's
+order (``torch_init``).
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without one.  Not ported (ROADMAP.md): ``--steps_per_dispatch``, the
-mesh/parallelism flags, ``--bert_init_path``, ``--resnet_init_path`` and
-preemption; argparse rejects them like any unknown flag.
+mesh/parallelism flags and preemption; argparse rejects them like any
+unknown flag.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from medvill_torch import torch_init
 from medvill_torch.checkpoint import (latest_pretrain_file,
                                       merge_pretrained_into_mmbt)
 from medvill_torch.cli import str2bool
@@ -115,6 +121,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab_size", type=int, default=30522)
     p.add_argument("--do_test", type=str2bool, default=False)
     p.add_argument("--Test_dset_name", type=str, default="Test.jsonl")
+    p.add_argument("--bert_init_path", type=str, default=None,
+                   help="HF BERT torch .bin to initialize the text encoder "
+                        "(reference: mmbt BertModel.from_pretrained)")
+    p.add_argument("--resnet_init_path", type=str, default=None,
+                   help="torchvision resnet50 .pth to initialize the image "
+                        "encoder (reference: mmbt/models/image.py "
+                        "pretrained=True)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -194,6 +207,17 @@ def train(args) -> dict:
         pw = torch.from_numpy(pos_weights(freqs, labels,
                                           len(train_ds))).to(device)
     state = classify.init_state(cfg, len(labels), t_total, device=device)
+    if args.bert_init_path:
+        torch_init.init_bert_from_torch(
+            state.model, args.bert_init_path, enc_key="enc",
+            num_layers=cfg.bert.num_hidden_layers)
+        logger.info("initialized text encoder from %s", args.bert_init_path)
+    if args.resnet_init_path:
+        torch_init.init_resnet_from_torch(
+            state.model, args.resnet_init_path,
+            trunk_path=("enc", "img_encoder"))
+        logger.info("initialized image encoder from %s",
+                    args.resnet_init_path)
     merged: List[str] = []
     if args.loaddir:
         path = latest_pretrain_file(args.loaddir)

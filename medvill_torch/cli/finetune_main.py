@@ -21,11 +21,15 @@ appends the epoch's metrics to ``<output_dir>/metrics.jsonl``; it writes the
 arguments to ``opt.json``.  With ``--tasks vqa --vqa_eval true`` it ends
 with the open/closed accuracy on the test split.
 
+``--bert_init_path`` (an HF BERT file, ``torch_init.init_bert_from_torch``
+into the encoder) and ``--resnet_init_path`` (a torchvision ResNet-50 file,
+``torch_init.init_resnet_from_torch`` into the trunk) initialize the model
+before the recover, in the JAX CLI's order.
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): ``--bert_init_path`` and
-``--resnet_init_path``, resume-by-scan and preemption, an orbax directory
-as ``--model_recover_path``, ``--steps_per_dispatch`` and the
-mesh/parallelism flags; argparse rejects them like any unknown flag.
+without one.  Not ported (ROADMAP.md): resume-by-scan and preemption, an
+orbax directory as ``--model_recover_path``, ``--steps_per_dispatch`` and
+the mesh/parallelism flags; argparse rejects them like any unknown flag.
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from typing import Dict, List
 
 import torch
 
+from medvill_torch import torch_init
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
 from medvill_torch.cli import str2bool
 from medvill_torch.config import (BertConfig, FinetuneConfig,
@@ -131,6 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bert_model", type=str, default="bert-base-scratch")
     p.add_argument("--vocab_size", type=int, default=30522)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    p.add_argument("--bert_init_path", type=str, default=None,
+                   help="HF BERT torch .bin to initialize the VLP encoder "
+                        "(reference: from_pretrained in finetune.py)")
+    p.add_argument("--resnet_init_path", type=str, default=None,
+                   help="torchvision resnet50 .pth for the visual trunk")
     p.add_argument("--relax_projection", action="store_true",
                    help="4 task-specific MLM-head projections selected by "
                         "task_idx (reference: finetune.py:182,307-319)")
@@ -216,6 +226,17 @@ def train(args) -> dict:
     t_total = max(1, len(loader) * cfg.epochs
                   // cfg.gradient_accumulation_steps)
     state = ft.init_state(cfg, t_total, device=device)
+    if args.bert_init_path:
+        torch_init.init_bert_from_torch(
+            state.model, args.bert_init_path, enc_key="bert",
+            num_layers=cfg.bert.num_hidden_layers)
+        logger.info("initialized encoder from %s", args.bert_init_path)
+    if args.resnet_init_path:
+        torch_init.init_resnet_from_torch(
+            state.model, args.resnet_init_path,
+            trunk_path=("bert", "img_encoder"))
+        logger.info("initialized visual trunk from %s",
+                    args.resnet_init_path)
     if cfg.model_recover_path:
         loaded, missing = recover_pretrain_into_vlp(state.model,
                                                     cfg.model_recover_path)

@@ -1,7 +1,7 @@
 """Typed configuration: a torch-free, jax-free copy of the JAX package's
 ``MaskVariant``, ``BertConfig``, ``ImageEncoderConfig``, ``PretrainConfig``,
-``FinetuneConfig``, ``ClassificationConfig`` and ``DecodeConfig``
-(medvill_tpu/core/config.py:16-329, 360-441), with the same fields and defaults so a ``config.json`` or a CLI
+``FinetuneConfig``, ``ClassificationConfig``, ``RetrievalConfig`` and
+``DecodeConfig`` (medvill_tpu/core/config.py:16-441), with the same fields and defaults so a ``config.json`` or a CLI
 flag means the same thing to both packages.
 
 ``compute_dtype`` names the matmul/conv dtype; LayerNorm, BatchNorm and
@@ -9,7 +9,7 @@ softmax statistics are always f32.  ``remat``/``remat_mode`` (a memory
 knob), ``fused_qkv`` (a JAX parameter-tree layout) and the TPU-only
 ``PretrainConfig`` fields (``mesh_shape``, ``donate_state``,
 ``mlm_loss_chunk``, ``ClassificationConfig.mesh_shape``) have no effect on
-the port.  ``fast_dropout`` selects
+the port; ``RetrievalConfig`` leaves ``mesh_shape`` out.  ``fast_dropout`` selects
 the same Bernoulli(rate) marginal as plain dropout, so the port has one
 dropout for both.  ``FinetuneConfig`` has every field of the JAX one but
 ``mesh_shape``.
@@ -337,6 +337,34 @@ class ClassificationConfig:
         default_factory=lambda: ImageEncoderConfig(num_image_embeds=256))
     mesh_shape: Tuple[int, ...] = (-1,)
     use_flash_attention: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    """Label-conditioned image-text retrieval (reference:
+    Downstream_task/Retrieval/full_dset_retrieval.py:646-793)."""
+
+    train_dataset: str = ""
+    eval_dataset: str = ""
+    output_path: str = "output_retrieval"
+    batch_size: int = 70
+    epochs: int = 10
+    lr: float = 1e-5
+    seq_len: int = 253
+    num_image_embeds: int = 180
+    img_size: int = 512
+    seed: int = 123
+    direction: str = "i2t"     # i2t | t2i
+    eval_len_size: int = 759   # candidates per query (759/1536/710/354)
+    pretrained_ckpt: Optional[str] = None
+    bert: BertConfig = dataclasses.field(default_factory=BertConfig)
+    image: ImageEncoderConfig = dataclasses.field(
+        default_factory=ImageEncoderConfig)
+    use_flash_attention: bool = True
+
+    @property
+    def total_len(self) -> int:
+        return self.seq_len + self.image.num_image_embeds + 3
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,6 +16,10 @@
   MMBT classification tree -> the reference MMBT layout (``enc.*
   clf.*``), a jax-free copy of ``export_mmbt_state_dict``
   (core/torch_export.py:241-255).
+- ``cnn_bert_state_dict_from_flax(params, batch_stats)``: the JAX
+  package's CNN_BERT retrieval baseline -> the reference CNN_BERT layout
+  (``txt_enc.* img_enc.model.* linear.*``), a jax-free copy of
+  ``export_cnn_bert_state_dict`` (core/torch_export.py:218-238).
 - ``load_vlp_checkpoint(model, path)``: a reference ``model.{N}.bin``
   (or one written by ``save_state_dict``) into a ``VLPForPreTraining``;
   ``module.``/``bert.`` prefixes are stripped as
@@ -25,6 +29,9 @@
 - ``load_mmbt_checkpoint(model, path)``: a classification checkpoint in
   the MMBT layout (the classification CLI writes them) into a
   ``MultimodalBertClf``.
+- ``load_cnn_bert_checkpoint(model, path)``: a retrieval checkpoint in
+  the CNN_BERT layout (the retrieval CLI's ``--CXRBERT false`` branch
+  writes them) into a ``CNNBert``.
 """
 from __future__ import annotations
 
@@ -193,6 +200,25 @@ def mmbt_state_dict_from_flax(params: Mapping, batch_stats: Mapping
     return out
 
 
+def cnn_bert_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                                  ) -> StateDict:
+    """JAX CNN_BERT tree (``{"txt_encoder": ..., "img_encoder": {"trunk":
+    ...}, "fc": ...}`` params, ``{"img_encoder": {"trunk": ...}}`` batch
+    stats) -> the reference CNN_BERT ``state_dict`` layout, as numpy
+    arrays."""
+    out: StateDict = {}
+    txt = params["txt_encoder"]
+    _embeddings(out, "txt_enc.txt_embeddings", txt["embeddings"])
+    _encoder(out, "txt_enc.encoder", txt["encoder"])
+    _lin(out, "txt_enc.pooler.dense", txt["pooler"]["dense"])
+    if "img_encoder" in params:
+        _trunk(out, "img_enc", params["img_encoder"]["trunk"],
+               batch_stats["img_encoder"]["trunk"])
+    if "fc" in params:
+        _lin(out, "linear", params["fc"])
+    return out
+
+
 def save_state_dict(sd: Mapping[str, np.ndarray], path: str) -> None:
     """``torch.save`` a flat numpy state dict as tensors (the format every
     reference ``torch.load`` site reads)."""
@@ -256,5 +282,11 @@ def load_cxrbert_checkpoint(model: nn.Module, path: str) -> List[str]:
 
 def load_mmbt_checkpoint(model: nn.Module, path: str) -> List[str]:
     """Load a classification checkpoint file in the MMBT layout into
+    ``model``, as strictly as ``load_vlp_checkpoint``."""
+    return _load_strict(model, _read_checkpoint(path), path)
+
+
+def load_cnn_bert_checkpoint(model: nn.Module, path: str) -> List[str]:
+    """Load a retrieval checkpoint file in the CNN_BERT layout into
     ``model``, as strictly as ``load_vlp_checkpoint``."""
     return _load_strict(model, _read_checkpoint(path), path)

@@ -54,9 +54,10 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=dtype)``: f32 statistics and affine, output
-    cast to ``dtype``."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+    """flax ``nn.LayerNorm(dtype=dtype)``: f32 statistics and affine (f64 on
+    f64 input), output cast to ``dtype``."""
+    return F.layer_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
+                        ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps).to(dtype)
 
 

@@ -3,7 +3,8 @@ JAX package's ``CXRBERT``, medvill_tpu/models/cxrbert.py:21-83).
 
 The training step uses ``features`` (sequence and pooled output, no head
 projection), ``mlm_chunk`` (the MLM head over a slice of positions, so the
-[B, L, vocab] logits are never built) and ``itm_logits``.  Parameter names
+[B, L, vocab] logits are never built) and ``itm_logits``; retrieval uses
+``itm_forward`` (the pooled output through the ITM head, no MLM logits).  Parameter names
 are the reference's pretrain ``state_dict`` (``export_cxrbert_state_dict``):
 ``enc.*``, ``mlm.predictions.*`` (decoder tied to
 ``enc.txt_embeddings.word_embeddings.weight``) and ``itm.linear.*``.
@@ -39,4 +40,12 @@ class CXRBERT(nn.Module):
         return self.mlm["predictions"](hidden)
 
     def itm_logits(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.itm(pooled)
+
+    def itm_forward(self, *args, **kwargs) -> torch.Tensor:
+        """Alignment logits only, f32 [B, 2]: the retrieval forward
+        (medvill_tpu/models/cxrbert.py:71-83; reference:
+        Downstream_task/Retrieval/retrieval.py:12-32 keeps enc + itm).
+        ``JointEncoder.forward``'s arguments."""
+        _, pooled = self.enc(*args, **kwargs)
         return self.itm(pooled)

@@ -291,8 +291,7 @@ def test_classification_cli_end_to_end_on_cpu(tmp_path):
     assert load_mmbt_checkpoint(model, str(run / "model.best.bin")) == []
     assert classification_main.build_parser().parse_args(
         argv[:-2]).device == "cuda"
-    for flag in ("--steps_per_dispatch", "--bert_init_path",
-                 "--resnet_init_path", "--model_parallel"):
+    for flag in ("--steps_per_dispatch", "--model_parallel"):
         with pytest.raises(SystemExit):
             classification_main.build_parser().parse_args(argv + [flag, "1"])
     with pytest.raises(FileNotFoundError):
@@ -314,8 +313,7 @@ def test_classification_cli_freeze_all_and_task_type():
     from medvill_tpu.cli.classification_main import build_parser
     jargs = vars(build_parser().parse_args(argv))
     targs = vars(classification_main.build_parser().parse_args(argv))
-    unported = {"steps_per_dispatch", "bert_init_path", "resnet_init_path",
-                "model_parallel", "zero1"}
+    unported = {"steps_per_dispatch", "model_parallel", "zero1"}
     assert {k: v for k, v in jargs.items() if k not in unported} == \
         {k: v for k, v in targs.items() if k != "device"}
 

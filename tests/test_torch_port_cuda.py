@@ -483,6 +483,105 @@ def test_attention_kernels_at_the_mmbt_call(cuda_device, dtype, rate):
         rate=rate, seed=5))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_at_the_retrieval_call(cuda_device, dtype, rate):
+    """K1 and K2 at the retrieval training call: 70 positives and 70
+    negatives, B = 140 (the grid's z extent), L = 1 + 180 + 1 + 254 = 436
+    (7 query tiles, the last of 52 rows), FULL, img_block 182, text lengths
+    uniform in 1..254, against the plain versions; in bf16 the tile pairs
+    skipped (read back) are the predicate's."""
+    B, L, img_block = 140, 436, 182
+    q, k, v, do = _attn_inputs(cuda_device, B, L, 12, dtype, 140)
+    txt = torch.randint(1, L - img_block + 1, (B,),
+                        generator=torch.Generator().manual_seed(140))
+    spec = torch.stack([torch.zeros_like(txt), txt], 1).to(
+        device=cuda_device, dtype=torch.int32)
+    kw = dict(img_block=img_block, l_real=L, family=tfa.FAMILY_PRETRAIN)
+    _check_attention(q, k, v, do, spec, dict(kw, rate=rate, seed=7))
+    if dtype == torch.bfloat16:
+        want = tmasks.tile_skip_grid(tfa.FAMILY_PRETRAIN, spec, img_block,
+                                     L, L, tfa.TILE)[:, None].to(cuda_device)
+        assert want.any()
+        for name, got in tfa.skipped_tiles(q, k, v, do, spec, **kw).items():
+            assert torch.equal(got, want.expand_as(got)), name
+
+
+def test_retrieval_step_on_card(cuda_device):
+    """One retrieval micro-step in f32 (a CXRBERT of 2 layers of 2 x 64
+    heads, 4 image embeds, 12 text positions, the frozen trunk in train
+    mode, dropout 0.1, 3 pairs) through K1/K2 against the same step with
+    the plain attention swapped in, from the same weights and seeds: 2 K1
+    and 2 K2 launches per micro-step and 2 K1 per scored batch; the loss
+    within 1e-4 relative and every gradient within 1e-3 of its tensor's
+    largest entry (a key bias of its layer's key weights')."""
+    from medvill_torch.config import RetrievalConfig
+    from medvill_torch.ops.dropout import DropoutRNG
+    from medvill_torch.train import retrieve as tret
+
+    bert = BertConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256,
+                      compute_dtype="float32")
+    cfg = RetrievalConfig(bert=bert, image=ImageEncoderConfig(
+        img_size=64, num_image_embeds=4), seq_len=11, img_size=64)
+    model = tret.build_model(cfg)
+    init_weights(model, 0, initializer_range=0.1)
+    model.to(cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    B, T = 6, 12
+    txt = torch.tensor([3, 12, 7, 1, 12, 5])
+    batch = {k: v.to(cuda_device) for k, v in dict(
+        cls_tok=torch.full((B, 1), 2), sep_tok=torch.full((B, 1), 3),
+        input_txt=torch.randint(5, 64, (B, T), generator=gen),
+        mask_spec=torch.stack([torch.zeros_like(txt), txt], 1).int(),
+        segment=torch.ones(B, T, dtype=torch.long),
+        image=torch.randint(0, 256, (B, 64, 64, 3), generator=gen,
+                            dtype=torch.uint8),
+        is_aligned=torch.tensor([1, 1, 1, 0, 0, 0])).items()}
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    pix = torch.arange(4, device=cuda_device)
+
+    def plain_attention(q, k, v, bias, rng=None, deterministic=True):
+        return tfa.attn_fwd_plain(q, k, v, batch["mask_spec"], img_block=6,
+                                  l_real=q.shape[1],
+                                  family=tfa.FAMILY_PRETRAIN, rate=0.1,
+                                  seed=rng.next_seed())[0]
+
+    def launches():
+        return (tfa.attn_fwd.launches, tfa.attn_bwd.launches)
+
+    out = {}
+    for path in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for k, v in model.named_buffers():
+                v.copy_(buffers[k])
+        before = launches()
+        loss, _ = tret.loss_and_metrics(
+            model, batch, DropoutRNG(3, cuda_device), pix, cfg,
+            attention_fn=plain_attention if path == "plain" else None)
+        loss.backward()
+        assert [a - b for a, b in zip(launches(), before)] == (
+            [2, 2] if path == "kernel" else [0, 0])
+        out[path] = (loss.item(), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None})
+    before = launches()
+    scores = tret.make_score_step(cfg)(model, batch)
+    assert [a - b for a, b in zip(launches(), before)] == [2, 0]
+    assert scores.shape == (B,) and bool(((scores >= 0) & (scores <= 1))
+                                         .all())
+    (k_loss, k_grads), (p_loss, p_grads) = out["kernel"], out["plain"]
+    assert np.isfinite(k_loss)
+    assert abs(k_loss - p_loss) <= 1e-4 * abs(p_loss)
+    assert k_grads.keys() == p_grads.keys() and len(k_grads) == 2 * 16 + 11
+    for name, w in p_grads.items():
+        ref = (p_grads[name[:-len("bias")] + "weight"]
+               if name.endswith("attention.self.key.bias") else w)
+        torch.testing.assert_close(k_grads[name], w, rtol=0,
+                                   atol=1e-3 * ref.abs().max().item())
+
+
 def test_mmbt_step_on_card(cuda_device, monkeypatch):
     """One classification micro-step in f32 (2 layers of 2 x 64 heads, 4
     image embeds and 12 text positions, the trunk trained with train-mode

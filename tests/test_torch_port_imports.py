@@ -32,7 +32,9 @@ def test_modules_import_neither_jax_nor_medvill_tpu():
                  "eval.meteor", "eval.chexpert", "eval.lang_utils",
                  "cli.classification_main", "data.classification",
                  "eval.metrics", "models.mmbt", "train.classify",
-                 "utils.seed"):
+                 "utils.seed", "torch_init", "utils.preempt",
+                 "data.retrieval", "models.cnn_bert", "train.retrieve",
+                 "cli.retrieval_main"):
         assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"
@@ -87,6 +89,10 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         classification_main.main(["--data_path", "d", "--vocab_file",
                                   "v.txt"])
+    from medvill_torch.cli import retrieval_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        retrieval_main.main(["--vocab_file", "v.txt"])
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

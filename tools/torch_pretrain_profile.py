@@ -1,9 +1,10 @@
 """Where the time goes in the port's training step on one NVIDIA GPU:
-pretraining (the default), report-generation finetuning or MMBT
-classification.
+pretraining (the default), report-generation finetuning, MMBT
+classification or image-text retrieval.
 
-    python tools/torch_pretrain_profile.py [--mode finetune|classify] \
-        [--fused_ln] [--steps 8] [--table out/torch_pretrain_profile.txt]
+    python tools/torch_pretrain_profile.py \
+        [--mode finetune|classify|retrieve] [--fused_ln] [--steps 8] \
+        [--table out/torch_pretrain_profile.txt]
 
 ``--mode pretrain``: the configuration of chip_smoke.py's ``train`` phase:
 PretrainConfig defaults (BERT-base, ResNet-50 random-pixel encoder at 512 px
@@ -15,13 +16,18 @@ every micro-step).  ``--mode classify``: the classification CLI's defaults
 (BERT-base, the ResNet-50 trunk trained at 512 px with 256 fibers, FULL
 over L = 514, batch 56, weighted BCE over 14 labels, BertAdam lr 1e-4) on
 chip_smoke.py's classification fixture (112 train records over 8 shared
-512-px PNGs).  Random weights from seed 0, bf16 compute.  It writes
+512-px PNGs).  ``--mode retrieve``: the retrieval CLI's defaults (CXRBERT,
+the frozen ResNet-50 trunk at 512 px with 180 random-pixel embeds, FULL
+over L = 436, 70 label-conditioned pairs = 140 rows, AdamW lr 1e-5) on
+chip_smoke.py's retrieval fixture (140 train records).  Random weights
+from seed 0, bf16 compute.  It writes
 chip_smoke.py's synthetic vocabulary and records (288 records over 8 shared
 512-px PNGs, or the classification fixture), then:
 
 - loader: the host time per batch of ``BatchLoader`` (the CLI's worker
   threads: 4 for pretraining, 1 for finetuning and classification; PNG
-  decode, tokenization, masking), alone;
+  decode, tokenization, masking), or of the retrieval CLI's pair batches
+  (one thread, both rows of each pair), alone;
 - step: the host-clock time per micro-step of the train step on one
   device-resident batch, ``--steps`` micro-steps after two of warmup,
   ending in a sync;
@@ -52,15 +58,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
-from medvill_torch.cli import finetune_main  # noqa: E402
+from medvill_torch.cli import finetune_main, retrieval_main  # noqa: E402
 from medvill_torch.config import BertConfig, PretrainConfig  # noqa: E402
 from medvill_torch.data.pretrain import (BatchLoader,  # noqa: E402
                                          CXRPretrainDataset)
+from medvill_torch.data.retrieval import (CXRRetrievalDataset,  # noqa: E402
+                                          collate_pairs)
 from medvill_torch.data.seq2seq import Img2TxtDataset  # noqa: E402
 from medvill_torch.data.tokenization import BertTokenizer  # noqa: E402
 from medvill_torch.train import classify  # noqa: E402
 from medvill_torch.train import finetune as finetune_lib  # noqa: E402
 from medvill_torch.train import pretrain as pretrain_lib  # noqa: E402
+from medvill_torch.train import retrieve  # noqa: E402
 
 # the device-timeline spans of record_function ranges, left out of the
 # kernel sums
@@ -95,9 +104,26 @@ def _kind(name: str) -> str:
     return "other"
 
 
+def _pair_batches(ds, pairs: int) -> list:
+    """The retrieval CLI's batches: ``pairs`` (positive, negative) pairs
+    collated, positives then negatives."""
+    return [collate_pairs([ds[j] for j in range(i * pairs, (i + 1) * pairs)])
+            for i in range(len(ds) // pairs)]
+
+
 def _setup(mode: str, fused_ln: bool, data: str, vocab: str, device):
     """(dataset, batch size, loader workers, train state, train step,
     what one example is called) of ``mode``."""
+    if mode == "retrieve":
+        cfg = retrieval_main.config_from_args(
+            retrieval_main.build_parser().parse_args(["--vocab_file", vocab]))
+        cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
+            cfg.bert, fused_ln=fused_ln))
+        tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+        return (CXRRetrievalDataset(data, tok, cfg, is_train=True, seed=0),
+                cfg.batch_size, 1, retrieve.init_state(cfg, seed=0,
+                                                       device=device),
+                retrieve.make_train_step(cfg), "examples")
     if mode == "classify":
         cfg, ds, pw, cls_id, sep_id = chip_smoke._clf_setup(data, vocab)
         cfg = dataclasses.replace(cfg, bert=dataclasses.replace(
@@ -128,8 +154,8 @@ def _setup(mode: str, fused_ln: bool, data: str, vocab: str, device):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["pretrain", "finetune", "classify"],
-                    default="pretrain")
+    ap.add_argument("--mode", choices=["pretrain", "finetune", "classify",
+                                       "retrieve"], default="pretrain")
     ap.add_argument("--fused_ln", action="store_true",
                     help="BertConfig.fused_ln on (K3/K4)")
     ap.add_argument("--steps", type=int, default=8,
@@ -147,16 +173,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="medvill_profile_") as d:
         vocab = os.path.join(d, "vocab.txt")
         chip_smoke.write_vocab(vocab)
-        data = (chip_smoke.write_clf_data(d, vocab) if args.mode == "classify"
-                else chip_smoke.write_train_data(d, vocab))
+        if args.mode == "classify":
+            data = chip_smoke.write_clf_data(d, vocab)
+        elif args.mode == "retrieve":
+            data = chip_smoke.write_retrieval_data(d, vocab)["train"]
+        else:
+            data = chip_smoke.write_train_data(d, vocab)
         dataset, batch_size, workers, state, step, unit = _setup(
             args.mode, args.fused_ln, data, vocab, device)
-        loader = BatchLoader(dataset, batch_size, shuffle=True, seed=0,
-                             workers=workers)
         t0 = time.perf_counter()
-        batches = list(loader)
+        if args.mode == "retrieve":
+            batches = _pair_batches(dataset, batch_size)
+            batch_size *= 2  # rows: a positive and a negative per pair
+        else:
+            loader = BatchLoader(dataset, batch_size, shuffle=True, seed=0,
+                                 workers=workers)
+            batches = list(loader)
+            loader.close()
         loader_s = time.perf_counter() - t0
-        loader.close()
     print(json.dumps({"what": "loader", "mode": args.mode,
                       "batches": len(batches), "batch": batch_size,
                       "workers": workers,
