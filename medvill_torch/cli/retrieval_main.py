@@ -204,6 +204,9 @@ def train(args) -> dict:
             label_conditioned=args.label_conditioned, seed=cfg.seed,
             cxr_bert=cxr_bert)
         B = cfg.batch_size
+        if len(train_ds) < B:
+            raise ValueError(f"{cfg.train_dataset}: {len(train_ds)} records "
+                             f"make no batch of {B} pairs")
 
         def pair_batches(epoch: int):
             # the epoch folded into the shuffle seed, as in JAX: every epoch
@@ -231,10 +234,6 @@ def train(args) -> dict:
                                     cfg.output_path)
                         return {"epochs": rows, "test": None,
                                 "loaded": loaded}
-                if not losses:
-                    raise ValueError(
-                        f"{cfg.train_dataset}: {len(train_ds)} records make "
-                        f"no batch of {B} pairs")
                 row = {"epoch": epoch,
                        "train_loss": torch.stack(losses).mean().item(),
                        "train_acc": torch.stack(accs).mean().item()}

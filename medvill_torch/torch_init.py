@@ -35,7 +35,7 @@ one of another shape, raises ValueError.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Mapping, Sequence, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -188,8 +188,9 @@ def _bert_sd_from_vendored(sd: StateDict, txt_prefix: str, enc_prefix: str,
     return out
 
 
-def load_hf_bert_into_joint(model: nn.Module, hf_state_dict: Mapping,
-                            num_layers: int = None,
+def load_hf_bert_into_joint(model: nn.Module,
+                            hf_state_dict: Union[str, Mapping],
+                            num_layers: Optional[int] = None,
                             enc_key: str = "enc") -> List[str]:
     """The embeddings, the first ``num_layers`` encoder layers (the
     encoder's own count by default, which they must equal) and, where both
@@ -231,11 +232,11 @@ def load_hf_bert_into_joint(model: nn.Module, hf_state_dict: Mapping,
 
 def init_bert_from_torch(model: nn.Module, sd_or_path: Union[str, Mapping],
                          enc_key: str = "enc",
-                         num_layers: int = None) -> List[str]:
+                         num_layers: Optional[int] = None) -> List[str]:
     """An HF ``pytorch_model.bin`` into the BERT under ``enc_key``
     (reference: cxrbert_origin.py:42-55, mmbt BertModel.from_pretrained)."""
-    return load_hf_bert_into_joint(model, _as_state_dict(sd_or_path),
-                                   num_layers=num_layers, enc_key=enc_key)
+    return load_hf_bert_into_joint(model, sd_or_path, num_layers=num_layers,
+                                   enc_key=enc_key)
 
 
 def _set_checked(model: nn.Module, sd: StateDict, pairs) -> List[str]:

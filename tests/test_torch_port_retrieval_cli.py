@@ -76,7 +76,7 @@ def test_both_clis_train_one_epoch(syn, tmp_path):
     flags and defaults are the JAX CLI's but --device (cuda by default);
     the unported flags are refused."""
     jout, tout = tmp_path / "jax", tmp_path / "port"
-    # 4 pairs, 8 rows: the JAX CLI shards a batch over the test session's 8
+    # 4 pairs, 8 rows: the JAX CLI shards a batch over the pytest run's 8
     # virtual devices; its evaluation is held by the next test
     run = ("--epochs", "1", "--batch_size", "4")
     _jax_main(_argv(syn, jout, *run))
