@@ -152,10 +152,38 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    batch of 70; then train-parity's f32 leg on one step of 2 pairs
    (fused_ln on, dropout 0.1, the kernels against the plain path).
 18. retrieve-cnn: the retrieval CLI's --CXRBERT false branch (CNN_BERT,
-   the trunk trained) at 32 pairs, the largest batch that fits (70 pairs,
-   140 trained images, would need ~125 GiB), one epoch and the test pool:
-   no kernel runs, a finite loss, metrics in [0, 1], model.0.bin in the
-   CNN_BERT layout; examples/s, peak memory.
+   the trunk trained) at its default 70 pairs (140 trained images; train-
+   mode BatchNorm keeps only its bf16 input and per-channel statistics for
+   the backward), one epoch and the test pool: no kernel runs, a finite
+   loss, metrics in [0, 1], model.0.bin in the CNN_BERT layout;
+   examples/s, peak memory.
+19. graph-steps: k micro-steps per dispatch as CUDA graphs
+   (medvill_torch/train/dispatch.py) against eager micro-steps.  K1-K4,
+   each captured alone with a device seed, draw in a replay the mask of an
+   eager launch from the same seed word (and the plain version's), another
+   mask for another word, 0.9 +- 0.005 kept (bf16, L = 64 / R = 2048,
+   the masks read back from the outputs).  Legs: finetune (the finetune
+   CLI's defaults, fused_ln on, batch 4) and pretrain (the pretrain CLI's
+   defaults: BAR, batch 36, accumulation 4), 8 micro-steps as two
+   dispatches of 4; retrieval (140 rows) and classification (batch 56,
+   the trunk trained), 4 micro-steps as two dispatches of 2.  Each from
+   equal states and seeds at dropout 0 (finetune and pretrain also at the
+   CLI's 0.1), both under PyTorch's deterministic algorithms: every
+   parameter, buffer and stacked metric within 1e-3 of its tensor's scale
+   of the eager run's (the worst printed; bitwise equal expected), the
+   same kernel launches per micro-step; at dropout 0 also under PyTorch's
+   default algorithms, as the CLIs run, where two eager runs differ: a
+   second eager run measures that spread, and the graphed run's mean
+   distance from the nearer (per tensor, over its scale) stays within 3 x
+   the eager runs' mean distance, floored at 1e-2; then the steady ms per
+   micro-step of each on one resident batch in turns (eager, graphed,
+   graphed, eager) and, under torch.profiler, the device-busy ms and idle
+   share.  Before
+   the legs, the finetune CLI at --steps_per_dispatch 1, 4, 4, 1:
+   reports/s, exactly 12/12/24/24 K1-K4 launches per micro-step, replays
+   counted, peak memory; then two epochs at k = 4 across --drop_after
+   (ratio 0, then 0.2: new graphs): the peak reserved within 1 GiB of a
+   one-epoch k = 4 run's (the first ratio's graphs are let go).
 
 Then the line of kernels (each with its launches by path and, beside the
 training shape's figures, its figures at the finetune shape and K1/K2's at
@@ -218,6 +246,10 @@ from medvill_torch.train import finetune as finetune_lib
 from medvill_torch.train import pretrain as pretrain_lib
 from medvill_torch.train import retrieve as retrieve_lib
 
+# cuBLAS's deterministic workspace setting (8 x 4 MiB, PyTorch's default
+# size on Hopper), read at the first GEMM: graph-steps compares under
+# torch.use_deterministic_algorithms, which asks for it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
@@ -247,10 +279,6 @@ RET_TRAIN_RECORDS = 2 * RET_PAIRS          # 2 micro-steps
 # the pools: --eval_len_size candidates per query (the cut: the CLI's
 # default is 759), 2 valid and 3 test queries
 RET_POOL, RET_VALID_QUERIES, RET_TEST_QUERIES = 140, 2, 3
-# the CNN_BERT branch trains the trunk: ~0.79 GiB of autograd state per
-# 512-px image, so the default 70 pairs (140 images) need ~125 GiB; 32
-# pairs (64 images) peak near 60 GiB
-RET_CNN_PAIRS = 32
 TRAIN_RECORDS, TRAIN_IMAGES = 288, 8
 MICRO_STEPS = TRAIN_RECORDS // PRE_B
 # finetuning: the finetune CLI's defaults over the first FT_RECORDS records
@@ -1394,8 +1422,9 @@ def _kernel_and_plain(model, loss_fn, plain_attention, what: str) -> dict:
     """One step's loss and gradients by the kernel path (K1-K4, once each
     per layer) and by the plain path (the plain versions swapped in), from
     the same weights and BatchNorm statistics.  ``loss_fn(attention_fn)``
-    runs the forward, with None for the kernels.  Returns {path: (loss,
-    {name: grad})}."""
+    runs the forward, with None for the kernels, and returns the loss or
+    (the loss, its terms: the per-position and per-example losses it is
+    the mean of).  Returns {path: (loss, {name: grad}, terms or None)}."""
     buffers = {k: v.clone() for k, v in model.named_buffers()}
     out = {}
     kernel_ln = bert_lib.fused_dropout_add_ln
@@ -1410,6 +1439,9 @@ def _kernel_and_plain(model, loss_fn, plain_attention, what: str) -> dict:
                 bert_lib.fused_dropout_add_ln = \
                     fused_ln.fused_dropout_add_ln_plain
             loss = loss_fn(plain_attention if path == "plain" else None)
+            terms = None
+            if isinstance(loss, tuple):
+                loss, terms = loss
             loss.backward()
         finally:
             bert_lib.fused_dropout_add_ln = kernel_ln
@@ -1419,8 +1451,56 @@ def _kernel_and_plain(model, loss_fn, plain_attention, what: str) -> dict:
               f"{what} {path} path launches {counts}")
         out[path] = (loss.item(), {n: p.grad.detach().float().clone()
                                    for n, p in model.named_parameters()
-                                   if p.grad is not None})
+                                   if p.grad is not None}, terms)
     return out
+
+
+def _loss_terms(model, batch: dict, per_position):
+    """A context that records a training forward's loss terms: each call of
+    ``per_position`` (a module attribute (module, name) returning per-term
+    losses, or the pretrain MLM's ``_mlm_ce``, whose valid labels' NLLs are
+    recorded) and, where the model has an ITM head, each example's ITM
+    cross-entropy.  The terms are listed in ``terms`` (f32, on the
+    device)."""
+    import contextlib
+
+    module, name = per_position
+    real = getattr(module, name)
+    terms: list = []
+
+    def recorded(logits, labels, *a, **kw):
+        out = real(logits, labels, *a, **kw)
+        if name == "_mlm_ce":
+            valid = labels != -100
+            gold = torch.gather(logits, -1, torch.where(valid, labels, 0)
+                                .unsqueeze(-1)).squeeze(-1)
+            terms.append((torch.logsumexp(logits, -1) - gold)[valid]
+                         .detach().float())
+        else:
+            terms.append(out[batch["masked_weights"] > 0].detach().float())
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(module, name, recorded)
+        itm = getattr(model, "itm_logits", None)
+        if itm is not None:
+            def itm_logits(pooled):
+                out = itm(pooled)
+                logits = out.detach().float()
+                labels = batch["is_aligned"].long()
+                terms.append(torch.logsumexp(logits, -1) - torch.gather(
+                    logits, -1, labels.unsqueeze(-1)).squeeze(-1))
+                return out
+            model.itm_logits = itm_logits
+        try:
+            yield terms
+        finally:
+            setattr(module, name, real)
+            if itm is not None:
+                del model.itm_logits
+
+    return ctx()
 
 
 def _parity_step(data, vocab, device, compute_dtype: str) -> dict:
@@ -1440,9 +1520,11 @@ def _parity_step(data, vocab, device, compute_dtype: str) -> dict:
         cfg.image.num_image_embeds).to(device)
 
     def loss_fn(attention_fn):
-        return pretrain_lib.pretrain_loss_and_metrics(
-            model, batch, DropoutRNG(SEED + 3, device), pix, cfg,
-            train=True, attention_fn=attention_fn)[0]
+        with _loss_terms(model, batch, (pretrain_lib, "_mlm_ce")) as terms:
+            loss = pretrain_lib.pretrain_loss_and_metrics(
+                model, batch, DropoutRNG(SEED + 3, device), pix, cfg,
+                train=True, attention_fn=attention_fn)[0]
+        return loss, torch.cat(terms)
 
     return _kernel_and_plain(
         model, loss_fn, _plain_attention(
@@ -1483,29 +1565,62 @@ def _check_parity_legs(legs: dict, rec: dict, phase: str) -> None:
     other operation is the same bf16 arithmetic on both paths.  So the
     kernel path may move the step by about what bf16 compute itself moves
     it, measured here as the plain path's distance in bf16 from the same
-    step in f32: the loss's relative distance within twice that of the
-    plain path, and each gradient tensor's largest distance within twice
-    the plain path's for that tensor.  Key biases are left out of the
-    per-tensor test: their exact gradient is 0 (see _compare_grads), so both
-    distances are rounding noise.  ``legs`` may hold the f32 leg alone.
-    Fills ``rec``."""
+    step in f32: the loss within twice that of the plain path, and each
+    gradient tensor's largest distance within twice the plain path's for
+    that tensor.  Where ``loss_fn`` gives the loss's terms (the
+    per-position and per-example losses it is the mean of) the loss is held
+    twice: (1) the root mean square of the kernel path's distance from the
+    plain path, term by term, within twice that of the plain path's bf16
+    terms from its f32 ones; (2) the loss itself, within twice the plain
+    path's relative bf16-vs-f32 distance, that limit floored at three
+    standard errors of the plain path's bf16 mean (3 x the terms' rms
+    distance / sqrt(terms), relative to the loss).  The mean's own
+    distance is one sample of the rounding, and the terms' errors can
+    cancel in it (finetune-parity's plain bf16 mean sat 3.4e-6 from f32 on
+    an H100 where its terms sat ~1e-3 apart): the floor keeps such a
+    sample from deciding alone, and (2) still bounds a shift of every
+    term.  Key biases are left out of the per-tensor test: their exact
+    gradient is 0 (see _compare_grads), so both distances are rounding
+    noise.  ``legs`` may hold the f32 leg alone.  Fills ``rec``."""
+    def rms(a, b) -> float:
+        return (a - b).square().mean().sqrt().item()
+
     # the plain path's own bf16-vs-f32 distance, the bf16 leg's yardstick
-    f_loss, f_grads = legs["float32"]["plain"]
+    f_loss, f_grads, f_terms = legs["float32"]["plain"]
     if "bfloat16" in legs:
-        b_loss, b_grads = legs["bfloat16"]["plain"]
+        b_loss, b_grads, b_terms = legs["bfloat16"]["plain"]
         floor_name, floor, _ = _compare_grads(b_grads, f_grads)
         floor_loss = abs(b_loss - f_loss) / abs(f_loss)
+        floor_terms = None if f_terms is None else rms(b_terms, f_terms)
+        std_err = (None if f_terms is None
+                   else floor_terms / b_terms.numel() ** 0.5)
     for dt, paths in legs.items():
-        (k_loss, k_grads), (p_loss, p_grads) = paths["kernel"], paths["plain"]
+        (k_loss, k_grads, k_terms), (p_loss, p_grads, p_terms) = (
+            paths["kernel"], paths["plain"])
         rel = abs(k_loss - p_loss) / abs(p_loss)
         worst_name, worst, key_bias = _compare_grads(k_grads, p_grads)
-        loss_tol = 1e-4 if dt == "float32" else 2.0 * floor_loss
-        check(np.isfinite(k_loss) and rel <= loss_tol,
-              f"{phase} {dt} loss {k_loss} vs {p_loss} (relative {rel})")
         rec[dt] = {"losses": {"kernel": k_loss, "plain": p_loss},
                    "loss_rel_err": rel, "grads": len(p_grads),
                    "worst_grad_rel_err": worst, "worst_grad": worst_name,
-                   "key_bias": key_bias, "tol": {"loss_rel": loss_tol}}
+                   "key_bias": key_bias, "tol": {}}
+        check(np.isfinite(k_loss), f"{phase} {dt} loss {k_loss}")
+        loss_tol = 1e-4 if dt == "float32" else 2.0 * floor_loss
+        if dt != "float32" and std_err is not None:
+            se_floor = 3.0 * std_err / abs(p_loss)
+            rec[dt]["tol"].update(loss_rel_from_mean=loss_tol,
+                                  loss_rel_std_err_floor=se_floor)
+            loss_tol = max(loss_tol, se_floor)
+        check(rel <= loss_tol, f"{phase} {dt} loss {k_loss} vs {p_loss} "
+                               f"(relative {rel} > {loss_tol})")
+        rec[dt]["tol"]["loss_rel"] = loss_tol
+        if dt != "float32" and floor_terms is not None:
+            dist = rms(k_terms, p_terms)
+            check(dist <= 2.0 * floor_terms,
+                  f"{phase} bf16 loss terms: rms distance {dist} > 2 x the "
+                  f"plain path's bf16-vs-f32 {floor_terms}")
+            rec[dt].update({"loss_terms": int(p_terms.numel()),
+                            "loss_terms_rms_dist": dist})
+            rec[dt]["tol"]["loss_terms_rms_dist"] = 2.0 * floor_terms
         if dt == "float32":
             check(worst <= 1e-3, f"{phase} f32 gradient {worst_name}: "
                                  f"{worst} of its scale > 1e-3")
@@ -1523,7 +1638,8 @@ def _check_parity_legs(legs: dict, rec: dict, phase: str) -> None:
                         "largest_ratio_grad": ratio_name})
         rec[dt]["tol"]["kernel_over_bf16_ratio"] = 2.0
         rec[dt]["plain_bf16_vs_f32"] = {
-            "loss_rel_err": floor_loss, "worst_grad_rel_err": floor,
+            "loss_rel_err": floor_loss, "loss_terms_rms_dist": floor_terms,
+            "loss_std_err": std_err, "worst_grad_rel_err": floor,
             "worst_grad": floor_name}
 
 
@@ -1715,9 +1831,12 @@ def _finetune_parity_step(cfg, vocab: str, device,
     model.to(device)
 
     def loss_fn(attention_fn):
-        return finetune_lib.finetune_loss_and_metrics(
-            model, batch, DropoutRNG(SEED + 3, device), cfg,
-            attention_fn=attention_fn)[0]
+        with _loss_terms(model, batch, (finetune_lib,
+                                        "label_smoothing_loss")) as terms:
+            loss = finetune_lib.finetune_loss_and_metrics(
+                model, batch, DropoutRNG(SEED + 3, device), cfg,
+                attention_fn=attention_fn)[0]
+        return loss, torch.cat(terms)
 
     return _kernel_and_plain(
         model, loss_fn, _plain_attention(
@@ -2342,16 +2461,15 @@ def phase_retr_steps(paths: dict, vocab: str, device) -> None:
 
 def phase_retrieve_cnn(d: str, vocab: str, paths: dict, device) -> None:
     """The retrieval CLI's --CXRBERT false branch (CNN_BERT, the trunk
-    trained) at RET_CNN_PAIRS pairs, the largest batch that fits (the
-    default 70 does not), one epoch and the test pool: finite loss,
-    metrics in [0, 1], model.0.bin in the CNN_BERT layout loading strictly,
-    no kernel launched (its text encoder takes the dense bias); peak
-    memory, examples/s."""
+    trained) at the CLI's default batch of RET_PAIRS pairs (140 trained
+    images), one epoch and the test pool: finite loss, metrics in [0, 1],
+    model.0.bin in the CNN_BERT layout loading strictly, no kernel launched
+    (its text encoder takes the dense bias); peak memory, examples/s."""
     out = os.path.join(d, "retrieval_cnn_run")
     argv = ["--train_dataset", paths["train"],
             "--label_conditioned_test_dataset", paths["test"],
             "--vocab_file", vocab, "--output_path", out,
-            "--CXRBERT", "false", "--batch_size", str(RET_CNN_PAIRS),
+            "--CXRBERT", "false",
             "--epochs", "1", "--do_test", "true",
             "--eval_len_size", str(RET_POOL), "--device", "cuda"]
     torch.cuda.empty_cache()
@@ -2363,18 +2481,20 @@ def phase_retrieve_cnn(d: str, vocab: str, paths: dict, device) -> None:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     row = res["epochs"][0]
-    steps = RET_TRAIN_RECORDS // RET_CNN_PAIRS
+    args = retrieval_main.build_parser().parse_args(argv)
+    check(args.batch_size == RET_PAIRS, f"the CLI's default batch is "
+                                        f"{args.batch_size} pairs")
+    steps = RET_TRAIN_RECORDS // RET_PAIRS
     check(row["micro_steps"] == steps and np.isfinite(row["train_loss"]),
           f"retrieve-cnn epoch {row}")
     check(not any(counts.values()), f"retrieve-cnn launches {counts}")
     _check_retrieval_metrics(res["test"], "retrieve-cnn test")
-    args = retrieval_main.build_parser().parse_args(argv)
     model = retrieve_lib.build_cnn_model(
         retrieval_main.config_from_args(args))
     check(load_cnn_bert_checkpoint(model, os.path.join(out, "model.0.bin"))
           == [], "CNN_BERT model.0.bin holds keys the model lacks")
-    emit({"phase": "retrieve-cnn", "pairs": RET_CNN_PAIRS,
-          "rows": 2 * RET_CNN_PAIRS, "default_pairs": 70,
+    emit({"phase": "retrieve-cnn", "pairs": RET_PAIRS,
+          "rows": 2 * RET_PAIRS, "default_pairs": True,
           "micro_steps": steps, "train_loss": row["train_loss"],
           "examples_per_s": row["examples_per_s"],
           "ms_per_micro_step": row["epoch_time_s"] / steps * 1e3,
@@ -2382,6 +2502,438 @@ def phase_retrieve_cnn(d: str, vocab: str, paths: dict, device) -> None:
           "test": {"mrr": res["test"]["mrr"],
                    "candidates_per_s": res["test"]["candidates_per_s"]},
           "launches": counts})
+
+
+GRAPH_LIMIT = 1e-3  # of a tensor's scale: the single-step card limit
+# under the default algorithms, the floor of the graphed run's mean
+# distance (per tensor, over its scale) from the nearer of two eager runs:
+# the eager runs' own spread is one sample, and in the retrieval leg two
+# runs, eager or graphed, read 2.6e-4 to 4.9e-3 apart on an H100, while a
+# graph that replays stale or wrong inputs moves most tensors by O(1)
+DEFAULT_FLOOR = 1e-2
+# the finetune CLI at k = 4 across --drop_after may reserve this much more
+# than one epoch: successive runs in one process drift by up to ~0.4 GiB,
+# while keeping the first ratio's graphs alive costs ~4 GiB (H100)
+DROP_AFTER_SLACK_GIB = 1.0
+
+
+def _group(batches: list) -> dict:
+    return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+
+
+def _replay_masks(device) -> dict:
+    """K1-K4 each captured alone in a CUDA graph with a device seed (the
+    word w plus the call's constant, as a graphed micro-step launches
+    them), the keep mask read back from its output (K1: q = k = 0 and V
+    one-hot over the 64 keys; K2: dV with dO one-hot; K3: x = 1, res = 0;
+    K4: dx == 0 where x was dropped), bf16, rate 0.1: the mask of a replay
+    with w = s1 equals an eager launch's from the same device seed and the
+    plain version's, a replay with w = s2 draws another, and the keep
+    fraction is 0.9 +- 0.005."""
+    from medvill_torch.ops.dropout import GOLDEN, DeviceSeed
+    B, L, rows, rate = 4, HEAD_DIM, 2048, 0.1
+    dt = torch.bfloat16
+    word = torch.zeros(1, dtype=torch.int32, device=device)
+    seed = DeviceSeed(word, (3 * GOLDEN) & 0xFFFFFFFF)
+    spec = torch.tensor([[int(MaskVariant.FULL), L - 2]] * B,
+                        dtype=torch.int32, device=device)
+    kw = dict(img_block=2, l_real=L, family=fa.FAMILY_PRETRAIN, rate=rate,
+              seed=seed)
+    z = torch.zeros(B, L, HEADS, HEAD_DIM, device=device, dtype=dt)
+    eye = torch.zeros_like(z)
+    eye[:, :, :, :L] = torch.eye(L, device=device, dtype=dt)[:, None]
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    x, res, dy = (torch.randn(rows, H, device=device, generator=gen).to(dt)
+                  for _ in range(3))
+    one, zero = torch.ones(H, device=device), torch.zeros(H, device=device)
+    o, lse = fa.attn_fwd(z, z, eye, spec, **kw)
+    launches = {
+        "K1": (lambda: fa.attn_fwd(z, z, eye, spec, **kw)[0],
+               lambda out: (out > 0).permute(0, 2, 1, 3),
+               lambda: fa.keep_mask(seed, B, HEADS, L, rate, device)),
+        "K2": (lambda: fa.attn_bwd(z, z, eye, o, eye, lse, spec, **kw)[2],
+               lambda out: (out > 0).permute(0, 2, 3, 1),
+               lambda: fa.keep_mask(seed, B, HEADS, L, rate, device)),
+        "K3": (lambda: fused_ln.fused_ln_fwd(
+            torch.ones_like(x), torch.zeros_like(x), one, zero, rate=rate,
+            eps=1e-12, seed=seed), lambda out: out > 0,
+               lambda: fused_ln.keep_mask(seed, rows, H, rate, device)),
+        "K4": (lambda: fused_ln.fused_ln_bwd(
+            x, res, one, dy, rate=rate, eps=1e-12, seed=seed)[0],
+               lambda out: out != 0,
+               lambda: fused_ln.keep_mask(seed, rows, H, rate, device))}
+    side = torch.cuda.Stream(device)
+    out = {}
+    for kid, (launch, mask_of, plain) in launches.items():
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            launch()  # lazily made scratch, outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            captured = launch()
+        masks = []
+        for s in (1234, 98765, 1234):
+            word.fill_(s)
+            graph.replay()
+            masks.append(mask_of(captured).clone())
+        word.fill_(1234)
+        eager = mask_of(launch())
+        want = plain()
+        frac = masks[0].float().mean().item()
+        check(torch.equal(masks[0], eager) and torch.equal(masks[2], eager),
+              f"{kid}: a replay's mask differs from the eager launch's")
+        check(torch.equal(eager, want), f"{kid}: mask differs from plain")
+        check(not torch.equal(masks[0], masks[1]),
+              f"{kid}: two seeds, one mask")
+        check(abs(frac - (1 - rate)) <= 0.005, f"{kid} keep fraction {frac}")
+        out[kid] = {"mask_equals_eager_and_plain": True,
+                    "fresh_per_replay": True, "keep_fraction": frac}
+        del graph, captured
+    return out
+
+
+def _peaks() -> dict:
+    return {"peak_alloc_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+
+
+def _run(make_state, make_step, batches: list, k) -> tuple:
+    """len(batches) micro-steps from a fresh state and a host generator of
+    seed SEED, one at a time (``k`` None: eager) or k per dispatch (CUDA
+    graphs).  Returns (every floating tensor of the state dict and the
+    metrics, by name, and the launch counts)."""
+    from medvill_torch.train.dispatch import MultiStep
+    state = make_state()
+    step = make_step() if k is None else MultiStep(make_step(), k)
+    gen = torch.Generator().manual_seed(SEED)
+    reset_counts()
+    if k is None:
+        out = [step(state, b, gen) for b in batches]
+    else:
+        out = [step(state, _group(batches[i:i + k]), gen)
+               for i in range(0, len(batches), k)]
+    counts = read_counts()
+    tensors = {f"param {n}": v.detach().clone()
+               for n, v in state.model.state_dict().items()
+               if v.is_floating_point()}
+    tensors.update({f"metric {m}": torch.cat([o[m].reshape(-1) for o in out])
+                    for m in out[0]})
+    del state, step, out
+    torch.cuda.empty_cache()
+    return tensors, counts
+
+
+def _distance(got: dict, want: dict) -> dict:
+    """Per tensor, the largest difference over the tensor's scale (its
+    largest entry in ``want``; a key bias's, its layer's key weights':
+    _compare_grads' rule): the worst, the mean over the tensors, and how
+    many are bitwise equal."""
+    rels = {}
+    for name, b in want.items():
+        a = got[name]
+        if torch.equal(a, b):
+            rels[name] = 0.0
+            continue
+        ref = b
+        if name.endswith("attention.self.key.bias"):
+            ref = want[name[:-len("bias")] + "weight"]
+        rels[name] = ((a.float() - b.float()).abs().max()
+                      / ref.float().abs().max().clamp(min=1e-30)).item()
+    worst_name = max(rels, key=rels.get)
+    return {"tensors": len(rels),
+            "bitwise_equal": sum(r == 0.0 for r in rels.values()),
+            "worst_rel_diff": rels[worst_name], "worst": worst_name,
+            "mean_rel_diff": sum(rels.values()) / len(rels)}
+
+
+def _graphed_vs_eager(make_state, make_step, batches: list, k: int,
+                      what: str, control: bool) -> dict:
+    """len(batches) eager micro-steps against len(batches) / k dispatches of
+    k (CUDA graphs) from equal states and generators of one seed, under
+    PyTorch's deterministic algorithms: every parameter and buffer and the
+    stacked metrics within GRAPH_LIMIT of their scale (_distance; the worst
+    printed; bitwise equal expected: the same kernels in the same order),
+    and the launches per micro-step equal.  With ``control``, again under
+    PyTorch's default algorithms, as the CLIs run: there some library
+    kernels sum with atomics (the trained trunk's convolutions among them),
+    so two eager runs differ, and Adam turns a gradient's last-bit noise
+    into a move of lr wherever the gradient is near 0.  So a second eager
+    run from the same state and seeds measures that spread, and the graphed
+    run's mean distance from the nearer eager run (over tensors, each over
+    its scale) must stay within 3 x the eager runs' mean distance from each
+    other, floored at DEFAULT_FLOOR; the worst tensors are printed."""
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        want, eager_counts = _run(make_state, make_step, batches, None)
+        got, counts = _run(make_state, make_step, batches, k)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    check(counts == eager_counts, f"{what}: graphed launches {counts} != "
+                                  f"eager {eager_counts}")
+    d = _distance(got, want)
+    check(d["worst_rel_diff"] <= GRAPH_LIMIT,
+          f"{what}: {d['worst']} {d['worst_rel_diff']} > {GRAPH_LIMIT} of "
+          f"scale")
+    n = len(batches)
+    rec = {"micro_steps": n, "k": k, "dispatches": n // k,
+           "launches_per_micro_step": {c: v / n for c, v in counts.items()},
+           **d, "limit": GRAPH_LIMIT}
+    del want, got
+    if control:
+        torch.use_deterministic_algorithms(False)
+        try:
+            first, _ = _run(make_state, make_step, batches, None)
+            second, _ = _run(make_state, make_step, batches, None)
+            graphed, _ = _run(make_state, make_step, batches, k)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+        spread = _distance(second, first)
+        got = [_distance(graphed, first), _distance(graphed, second)]
+        nearer = min(d["mean_rel_diff"] for d in got)
+        limit = max(DEFAULT_FLOOR, 3.0 * spread["mean_rel_diff"])
+        check(nearer <= limit,
+              f"{what}, default algorithms: graphed vs eager mean "
+              f"{nearer} > {limit} (eager vs eager "
+              f"{spread['mean_rel_diff']})")
+        rec["default_algorithms"] = {"eager_vs_eager": spread,
+                                     "graphed_vs_eager": got,
+                                     "limit_mean_rel_diff": limit}
+    return rec
+
+
+def _busy(fn, micro_steps: int) -> tuple:
+    """(wall ms per micro-step, device-busy ms per micro-step, idle share,
+    host kernel and graph launches per micro-step) of ``fn()`` under
+    torch.profiler: the kernels' device time summed (graph-launched
+    kernels included)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avgs
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not e.key.startswith(("Optimizer.step#",
+                                         "ProfilerStep#")))
+    launches = sum(e.count for e in avgs if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+        "cudaGraphLaunch"))
+    wall_ms = wall / micro_steps * 1e3
+    busy_ms = busy / 1e3 / micro_steps
+    return wall_ms, busy_ms, 1 - busy_ms / wall_ms, launches / micro_steps
+
+
+def _graph_timing(make_state, make_step, batch: dict, k: int,
+                  profile: bool, rounds: int = 2) -> dict:
+    """Steady ms per micro-step on one resident batch, eager (k single
+    steps) and graphed (one dispatch of k over the batch stacked k times),
+    in turns eager, graphed, graphed, eager, ``rounds`` dispatches each
+    after warmup (both graphs captured); with ``profile``, each under
+    torch.profiler instead (_busy)."""
+    from medvill_torch.train.dispatch import MultiStep
+    group = _group([batch] * k)
+    names = ("eager", "graphed")
+    states = {name: make_state() for name in names}
+    steps = {"eager": make_step(), "graphed": MultiStep(make_step(), k)}
+    gens = {name: torch.Generator().manual_seed(SEED) for name in names}
+
+    def dispatch(name):
+        if name == "graphed":
+            steps[name](states[name], group, gens[name])
+            return
+        for _ in range(k):
+            steps[name](states[name], batch, gens[name])
+
+    # the first micro-step of each kind runs eagerly, its second captures;
+    # a capture empties the allocator's cache, so the eager path warms last
+    every = states["graphed"].tx.every
+    for name in names[::-1]:
+        for _ in range(-(-2 * max(k, every) // k)):
+            dispatch(name)
+    out = {}
+    if profile:
+        for name in names:
+            wall, busy, idle, launches = _busy(lambda: dispatch(name), k)
+            out[name] = {"profiled_ms_per_micro_step": wall,
+                         "device_busy_ms_per_micro_step": busy,
+                         "device_idle_share": idle,
+                         "host_launches_per_micro_step": launches}
+    else:
+        out = {name: {"ms_per_micro_step": []} for name in names}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                dispatch(name)
+            torch.cuda.synchronize()
+            out[name]["ms_per_micro_step"].append(
+                (time.perf_counter() - t0) / (rounds * k) * 1e3)
+    del states, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _with_rate(cfg, rate):
+    """``cfg`` with both dropout rates at ``rate`` (None: as it is)."""
+    if rate is None:
+        return cfg
+    return dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, hidden_dropout_prob=rate,
+        attention_probs_dropout_prob=rate))
+
+
+def _graph_legs(ft_argv: list, data: str, vocab: str, clf_data: str,
+                ret_paths: dict, device) -> dict:
+    """graph-steps' legs: name -> (makers(cfg) -> (make_state, make_step),
+    the CLI's config, the device batches, k, the dropout rates compared
+    (None: the config's own))."""
+    ft_cfg = finetune_main.config_from_args(
+        finetune_main.build_parser().parse_args(ft_argv))
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=True)
+    ft_batches = [pretrain_lib.to_device(b, device) for b in BatchLoader(
+        Img2TxtDataset(ft_cfg.src_file, tok, ft_cfg, seed=SEED), FT_B,
+        shuffle=False)][:8]
+    pre_cfg = pretrain_main.config_from_args(pretrain_main.build_parser()
+                                             .parse_args(
+        ["--train_dataset", data, "--vocab_file", vocab]))
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    pre_batches = [pretrain_lib.to_device(b, device) for b in BatchLoader(
+        CXRPretrainDataset(data, tok, pre_cfg, seed=SEED), PRE_B,
+        shuffle=False)][:8]
+    ret_cfg = retrieval_main.config_from_args(
+        retrieval_main.build_parser().parse_args(["--vocab_file", vocab]))
+    ret_ds = CXRRetrievalDataset(ret_paths["train"], tok, ret_cfg,
+                                 is_train=True, seed=SEED)
+    ret_batches = [pretrain_lib.to_device(collate_pairs(
+        [ret_ds[i] for i in range(j * RET_PAIRS, (j + 1) * RET_PAIRS)]),
+        device) for j in range(2)] * 2
+    clf_cfg, clf_ds, pw, cls_id, sep_id = _clf_setup(clf_data, vocab)
+    pw = pw.to(device)
+    clf_batches = [pretrain_lib.to_device(b, device) for b in BatchLoader(
+        clf_ds, CLF_B, shuffle=False)][:2] * 2
+
+    legs = {
+        "finetune": (lambda c: (lambda: finetune_lib.init_state(
+            c, t_total=100, seed=SEED, device=device),
+            lambda: finetune_lib.make_train_step(c)), ft_cfg, ft_batches,
+            4, (0.0, None)),
+        "pretrain": (lambda c: (lambda: pretrain_lib.init_state(
+            c, seed=SEED, device=device),
+            lambda: pretrain_lib.make_train_step(c)), pre_cfg, pre_batches,
+            4, (0.0, None)),
+        "retrieval": (lambda c: (lambda: retrieve_lib.init_state(
+            c, seed=SEED, device=device),
+            lambda: retrieve_lib.make_train_step(c)), ret_cfg, ret_batches,
+            2, (0.0,)),
+        "classification": (lambda c: (lambda: classify.init_state(
+            c, len(c.labels), t_total=100, seed=SEED, device=device),
+            lambda: classify.make_train_step(c, pw, cls_id, sep_id)),
+            clf_cfg, clf_batches, 2, (0.0,))}
+    return legs
+
+
+def phase_graph_steps(ft_argv: list, data: str, vocab: str, clf_data: str,
+                      ret_paths: dict, d: str, device) -> dict:
+    """k micro-steps per dispatch (train/dispatch.py: CUDA graphs of the
+    training micro-step) against eager micro-steps: the masks K1-K4 draw
+    from a device seed in a replay (_replay_masks); per leg -- finetune
+    (the finetune CLI's defaults, fused_ln on) and pretrain (the pretrain
+    CLI's defaults: BAR, batch 36, accumulation 4), two dispatches of 4;
+    retrieval (140 rows) and classification (batch 56, the trunk
+    trained), two dispatches of 2 -- graphed against eager at dropout 0
+    (and 0.1 for finetune and pretrain: the replays draw the eager steps'
+    masks), at dropout 0 also under the default algorithms against the
+    spread of two eager runs (_graphed_vs_eager), the same launches per
+    micro-step, and the steady ms of each in turns; the finetune CLI at
+    --steps_per_dispatch 1 and 4 in turns (1, 4, 4, 1), then at 4 across
+    --drop_after (its peak reserved memory against one epoch's); last,
+    each leg's device busy ms and idle share under torch.profiler (after
+    every timed run, so that none is timed after a profile).  Returns the
+    k = 4 CLI runs' launches."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "graph-steps", "replay_masks": _replay_masks(device)}
+    # the finetune CLI at --steps_per_dispatch 1 and 4, in turns
+    cli = {"k1": [], "k4": []}
+    k4_counts = {c: 0 for c in KERNEL_COUNTS}
+    for run, k in enumerate((1, 4, 4, 1)):
+        argv = ft_argv + ["--steps_per_dispatch", str(k), "--output_dir",
+                          os.path.join(d, f"finetune_k{k}_{run}")]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        row = finetune_main.main(argv)["epochs"][0]
+        counts = read_counts()
+        want = {c: v * FT_MICRO_STEPS for c, v in KERNEL_COUNTS.items()}
+        check(row["micro_steps"] == FT_MICRO_STEPS and np.isfinite(
+            row["loss"]), f"finetune CLI k {k}: {row}")
+        check(counts == want, f"finetune CLI k {k} launches {counts}")
+        cli[f"k{k}"].append({"reports_per_s": FT_MICRO_STEPS * FT_B
+                             / row["epoch_time_s"],
+                             "ms_per_micro_step": row["epoch_time_s"]
+                             / FT_MICRO_STEPS * 1e3, "loss": row["loss"],
+                             **_peaks()})
+        if k == 4:
+            k4_counts = {c: k4_counts[c] + v for c, v in counts.items()}
+    # two epochs at k = 4 that cross --drop_after: the second epoch's
+    # ratio captures new graphs, and the first ratio's pool must go
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rows = finetune_main.main(ft_argv + [
+        "--steps_per_dispatch", "4", "--num_train_epochs", "2",
+        "--drop_after", "1", "--max_drop_worst_ratio", "0.2",
+        "--output_dir", os.path.join(d, "finetune_k4_drop")])["epochs"]
+    counts = read_counts()
+    k4_counts = {c: k4_counts[c] + v for c, v in counts.items()}
+    one = max(r["peak_reserved_gib"] for r in cli["k4"])
+    cross = {"ratios": [r["drop_worst_ratio"] for r in rows],
+             "losses": [r["loss"] for r in rows], **_peaks(),
+             "one_epoch_k4_peak_reserved_gib": one,
+             "limit_peak_reserved_gib": one + DROP_AFTER_SLACK_GIB}
+    check([r["drop_worst_ratio"] for r in rows] == [0.0, 0.2]
+          and all(np.isfinite(r["loss"]) for r in rows)
+          and counts == {c: 2 * v * FT_MICRO_STEPS
+                         for c, v in KERNEL_COUNTS.items()},
+          f"finetune CLI across --drop_after: {rows} {counts}")
+    check(cross["peak_reserved_gib"] <= one + DROP_AFTER_SLACK_GIB,
+          f"finetune CLI across --drop_after reserved "
+          f"{cross['peak_reserved_gib']} GiB > one epoch's {one} + "
+          f"{DROP_AFTER_SLACK_GIB}")
+    cli["k4_across_drop_after"] = cross
+    rec["finetune_cli"] = cli
+    legs = _graph_legs(ft_argv, data, vocab, clf_data, ret_paths, device)
+    for name, (makers, cfg, batches, k, rates) in legs.items():
+        leg = {"k": k, "batch_rows": int(batches[0][next(iter(
+            batches[0]))].shape[0])}
+        for rate in rates:
+            c = _with_rate(cfg, rate)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            r = _graphed_vs_eager(
+                *makers(c), batches, k, f"graph-steps {name} rate {rate}",
+                control=rate == 0.0)
+            r["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            leg["dropout_" + ("cli" if rate is None else str(rate))] = r
+        torch.cuda.empty_cache()
+        leg["timing"] = _graph_timing(*makers(cfg), batches[0], k,
+                                      profile=False)
+        rec[name] = leg
+    for name, (makers, cfg, batches, k, _) in legs.items():
+        for path, prof in _graph_timing(*makers(cfg), batches[0], k,
+                                        profile=True).items():
+            rec[name]["timing"][path].update(prof)
+        emit({"phase": "graph-steps-leg", "leg": name, **rec[name]})
+    rec["wall_s"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in rec.items() if k not in legs})
+    return k4_counts
 
 
 def main() -> int:
@@ -2421,11 +2973,15 @@ def main() -> int:
         retrieve_counts, ret_paths = phase_retrieve(d, vocab, device)
         phase_retr_steps(ret_paths, vocab, device)
         phase_retrieve_cnn(d, vocab, ret_paths, device)
+        graph_counts = phase_graph_steps(
+            ft_argv, data, vocab, os.path.join(d, "clf_data"), ret_paths, d,
+            device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
              "train-fused": fused_counts, "finetune": finetune_counts,
              "decode": decode_counts, "classify": classify_counts,
              "classify-fused": clf_fused_counts,
-             "retrieve": {k: retrieve_counts[k] for k in ("K1", "K2")}}
+             "retrieve": {k: retrieve_counts[k] for k in ("K1", "K2")},
+             "finetune-graphs": graph_counts}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",

@@ -11,6 +11,13 @@ def str2bool(v):
     return str(v).lower() in ("1", "true", "yes")
 
 
+def collect_metrics(agg: dict, metrics: dict, is_group: bool) -> None:
+    """Appends a step's device metrics to ``agg`` (name -> list of
+    per-micro-step tensors); a dispatch's metrics are stacked [k]."""
+    for k, v in metrics.items():
+        agg.setdefault(k, []).extend(v.unbind(0) if is_group else (v,))
+
+
 def sampling_kwargs(args, beam_size: int) -> dict:
     """Validated DecodeSettings kwargs for --do_sample/--temperature/
     --top_k/--top_p, shared by the decode and serve CLIs and checked at

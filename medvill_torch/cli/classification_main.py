@@ -15,7 +15,10 @@ with ``--loaddir``, merges the latest pretrain ``model.<epoch>.bin`` of
 that directory (``checkpoint.merge_pretrained_into_mmbt``: every ``enc.*``
 tensor whose name and shape match, BatchNorm statistics included; a
 directory with none raises).  Each epoch trains through the prefetching
-loader (``dispatch_loader``) under the epoch's freeze phase (``--freeze_img``
+loader (``dispatch_loader``; with ``--steps_per_dispatch k`` > 1, k
+micro-steps per dispatch over groups of k batches: CUDA graphs on the
+card, captured again for each freeze phase, a loop of eager steps on the
+CPU; an epoch's tail batches train alone) under the epoch's freeze phase (``--freeze_img``
 / ``--freeze_txt`` epochs; ``--freeze_*_all false`` freezes for the whole
 run), evaluates the valid split (AUROC/F1, or accuracy with ``--task_type
 classification``), moves the plateau scale, writes ``<savedir>/<name>/
@@ -33,9 +36,8 @@ initialize the model before the ``--loaddir`` merge, in the JAX CLI's
 order (``torch_init``).
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): ``--steps_per_dispatch``, the
-mesh/parallelism flags and preemption; argparse rejects them like any
-unknown flag.
+without one.  Not ported (ROADMAP.md): the mesh/parallelism flags and
+preemption; argparse rejects them like any unknown flag.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ import torch
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import (latest_pretrain_file,
                                       merge_pretrained_into_mmbt)
-from medvill_torch.cli import str2bool
+from medvill_torch.cli import collect_metrics, str2bool
 from medvill_torch.config import (BertConfig, ClassificationConfig,
                                   ImageEncoderConfig)
 from medvill_torch.convert import load_mmbt_checkpoint
@@ -63,6 +65,7 @@ from medvill_torch.data.classification import (ClassificationDataset,
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train import classify
+from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
 from medvill_torch.utils.seed import set_seed
@@ -128,6 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torchvision resnet50 .pth to initialize the image "
                         "encoder (reference: mmbt/models/image.py "
                         "pretrained=True)")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="train micro-steps per dispatch (CUDA graphs "
+                        "replayed over stacked batches; the JAX CLI's "
+                        "lax.scan) — amortizes per-dispatch host/runtime "
+                        "overhead; no reference equivalent")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -225,6 +233,7 @@ def train(args) -> dict:
         logger.info("merged %d tensors from %s", len(merged), path)
     cls_id, sep_id = tokenizer.vocab["[CLS]"], tokenizer.vocab["[SEP]"]
     train_step = classify.make_train_step(cfg, pw, cls_id, sep_id)
+    multi_step = MultiStep(train_step, max(1, args.steps_per_dispatch))
     eval_step = classify.make_eval_step(cfg, cls_id, sep_id)
     sched = classify.PlateauScheduler(cfg.lr_factor, cfg.lr_patience)
     generator = torch.Generator().manual_seed(cfg.seed)
@@ -237,9 +246,13 @@ def train(args) -> dict:
             classify.apply_freeze(state.model, epoch < cfg.freeze_img,
                                   epoch < cfg.freeze_txt)
             t0 = time.perf_counter()
-            losses: List[torch.Tensor] = []
-            for batch in dispatch_loader(train_loader, device):
-                losses.append(train_step(state, batch, generator)["loss"])
+            agg: Dict[str, List[torch.Tensor]] = {}
+            for batch, is_group in dispatch_loader(train_loader, device,
+                                                   k=multi_step.k):
+                m = (multi_step if is_group else train_step)(
+                    state, batch, generator)
+                collect_metrics(agg, m, is_group)
+            losses = agg["loss"]
             train_loss = torch.stack(losses).float().mean().item()
             epoch_s = time.perf_counter() - t0
             metrics, _, _ = classify.evaluate(eval_step, state.model,

@@ -12,7 +12,12 @@ given (``medvill_torch.checkpoint.recover_pretrain_into_vlp``: the keys the
 file lacks keep their random init and are logged), and runs
 ``--num_train_epochs`` over ``BatchLoader`` (prefetched and placed on the
 device on a background thread, ``dispatch_loader``) -> the train step of
-``medvill_torch.train.finetune`` (BertAdam over ``t_total = max(1,
+``medvill_torch.train.finetune``, or with ``--steps_per_dispatch k`` > 1 its
+k-micro-step dispatch over groups of k batches (CUDA graphs on the card, a
+loop of eager steps on the CPU; an epoch's tail batches train alone; a
+new step when the drop-worst ratio changes, where JAX compiles one, and
+the last ratio's graphs dropped, since the ratio never goes back)
+(BertAdam over ``t_total = max(1,
 len(loader) * epochs // accumulation)`` optimizer steps, drop-worst from
 the epoch after ``--drop_after``).  At the end of each epoch it writes
 ``<output_dir>/model.<epoch>.bin`` in the reference VLP layout (what
@@ -28,8 +33,8 @@ before the recover, in the JAX CLI's order.
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without one.  Not ported (ROADMAP.md): resume-by-scan and preemption, an
-orbax directory as ``--model_recover_path``, ``--steps_per_dispatch`` and
-the mesh/parallelism flags; argparse rejects them like any unknown flag.
+orbax directory as ``--model_recover_path`` and the mesh/parallelism
+flags; argparse rejects them like any unknown flag.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ import torch
 
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
-from medvill_torch.cli import str2bool
+from medvill_torch.cli import collect_metrics, str2bool
 from medvill_torch.config import (BertConfig, FinetuneConfig,
                                   ImageEncoderConfig)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
@@ -52,6 +57,7 @@ from medvill_torch.data.seq2seq import Img2TxtDataset
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.data.vqa import VQADataset
 from medvill_torch.train import finetune as ft
+from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
 from medvill_torch.utils.seed import set_seed
@@ -144,6 +150,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--relax_projection", action="store_true",
                    help="4 task-specific MLM-head projections selected by "
                         "task_idx (reference: finetune.py:182,307-319)")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="k train micro-steps per dispatch (CUDA graphs "
+                        "replayed over stacked batches; the JAX CLI's "
+                        "lax.scan) — amortizes per-dispatch host overhead; "
+                        "same mechanism as the pretrain CLI's flag")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -247,17 +258,25 @@ def train(args) -> dict:
                         missing)
     generator = torch.Generator().manual_seed(cfg.seed)
     metrics_path = os.path.join(cfg.output_dir, "metrics.jsonl")
+    k = max(1, args.steps_per_dispatch)
+    step = multi = ratio_of_multi = None
     rows = []
     try:
         for epoch in range(cfg.epochs) if args.do_train else ():
             ratio = ft.drop_worst_ratio_for_epoch(cfg, epoch)
-            step = ft.make_train_step(cfg, ratio)
+            if ratio != ratio_of_multi:
+                # the ratio never goes back: the last one's graphs go, and
+                # their memory pool back to the card
+                multi = None
+                torch.cuda.empty_cache()
+                step = ft.make_train_step(cfg, ratio)
+                multi, ratio_of_multi = MultiStep(step, k), ratio
             t0 = time.perf_counter()
             agg: Dict[str, List[torch.Tensor]] = {}
-            for batch in dispatch_loader(loader, device, keys=_KEYS):
-                m = step(state, batch, generator)
-                for k, v in m.items():
-                    agg.setdefault(k, []).append(v)
+            for batch, is_group in dispatch_loader(loader, device,
+                                                   keys=_KEYS, k=k):
+                m = (multi if is_group else step)(state, batch, generator)
+                collect_metrics(agg, m, is_group)
             row = _epoch_row(agg)  # reads the device: the epoch has ended
             row.update(epoch=epoch, epoch_time_s=time.perf_counter() - t0,
                        drop_worst_ratio=ratio)

@@ -8,7 +8,10 @@ data, tasks, mask variants, schedule, model and optimizer).
 It runs ``--epochs`` over the dataset: ``BatchLoader``, prefetched and
 placed on the device on a background thread (``dispatch_loader``) -> the
 train step of
-``medvill_torch.train.pretrain`` (AdamW at constant ``--lr``: the JAX CLI
+``medvill_torch.train.pretrain``, or with ``--steps_per_dispatch k`` > 1
+its k-micro-step dispatch over groups of k batches (CUDA graphs on the
+card, a loop of eager steps on the CPU; an epoch's tail batches train
+alone) (AdamW at constant ``--lr``: the JAX CLI
 parses ``--warmup`` and applies no schedule, and neither does this one;
 ``--dropout_prob`` is parsed and, as there, does not change the model's
 dropout rates).  At the end of every ``--save_interval``-th epoch and of the
@@ -19,7 +22,7 @@ the epoch's metrics to ``<output_path>/metrics.jsonl``.
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without one.  Not ported (ROADMAP.md): resume and preemption,
-``--test_dataset`` eval, ``--steps_per_dispatch``, the mesh/parallelism
+``--test_dataset`` eval, the mesh/parallelism
 flags, ``--watch_interval``, ``--profile_dir``, ``--hf_bert_checkpoint`` and
 ``--resnet_init_path``; argparse rejects them like any unknown flag.
 """
@@ -33,13 +36,14 @@ from typing import Dict, List
 
 import torch
 
-from medvill_torch.cli import str2bool
+from medvill_torch.cli import collect_metrics, str2bool
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   PretrainConfig)
 from medvill_torch.convert import load_cxrbert_checkpoint
 from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
                                          dispatch_loader)
 from medvill_torch.data.tokenization import BertTokenizer
+from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.train.pretrain import init_state, make_train_step
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
@@ -110,6 +114,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="freeze the entire ResNet trunk (the reference's "
                         "executed behavior, cxrbert_origin.py:65-70); false "
                         "trains it")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="train micro-steps per dispatch, replayed as CUDA "
+                        "graphs (amortizes per-dispatch overhead; the JAX "
+                        "CLI's lax.scan).  Epoch-tail batches that do not "
+                        "fill a group still train, individually, via a "
+                        "single-step dispatch.")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -179,20 +189,23 @@ def train(args) -> List[dict]:
         logger.warning("the ResNet trunk is frozen (reference semantics) "
                        "and randomly initialized: no ImageNet weights are "
                        "loaded by the port")
+    k = max(1, args.steps_per_dispatch)
     train_step = make_train_step(cfg)
+    multi_step = MultiStep(train_step, k)
     generator = torch.Generator().manual_seed(cfg.seed)
     rows = []
     try:
         for epoch in range(cfg.epochs):
             t0 = time.perf_counter()
             agg: Dict[str, List[torch.Tensor]] = {}
-            for i, batch in enumerate(dispatch_loader(loader, device)):
-                m = train_step(state, batch, generator)
-                for k, v in m.items():
-                    agg.setdefault(k, []).append(v)
+            for i, (batch, is_group) in enumerate(
+                    dispatch_loader(loader, device, k=k)):
+                m = (multi_step if is_group else train_step)(
+                    state, batch, generator)
+                collect_metrics(agg, m, is_group)
                 if i % cfg.log_freq == 0:
                     logger.info("epoch %d it %d loss %.4f", epoch, i,
-                                m["loss"].item())
+                                m["loss"].float().mean().item())
             row = _epoch_row(agg)  # reads the device: the epoch has ended
             row.update(epoch=epoch, epoch_time_s=time.perf_counter() - t0)
             row["pairs_per_s"] = (row["micro_steps"] * cfg.batch_size

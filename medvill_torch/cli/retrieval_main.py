@@ -20,7 +20,10 @@ shuffles the records by numpy's ``default_rng(seed + epoch)`` and takes
 ``len // batch_size`` batches of label-conditioned (positive, negative)
 pairs (``data/retrieval.py``), 2 x ``--batch_size`` rows each, through the
 prefetching loader (``dispatch_loader``) into ``train/retrieve.py``'s step
-(AdamW at ``--lr``; K1/K2 under FULL on the card).  At the end of each
+(AdamW at ``--lr``; K1/K2 under FULL on the card), or with
+``--steps_per_dispatch k`` > 1 into k micro-steps per dispatch over groups
+of k batches (either branch: CUDA graphs on the card, a loop of eager
+steps on the CPU; an epoch's tail batches train alone).  At the end of each
 epoch it writes ``<output_path>/model.<epoch>.bin`` in the reference
 layout (``convert.load_cxrbert_checkpoint`` and
 ``--load_pretrained_model`` read it) and appends to ``metrics.jsonl``
@@ -39,8 +42,8 @@ SIGTERM ends training after the current micro-step with the epoch's
 checkpoint saved (``utils/preempt.py``, save-only as in JAX).
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): ``--steps_per_dispatch`` and the
-mesh/parallelism flags; argparse rejects them like any unknown flag.
+without one.  Not ported (ROADMAP.md): the mesh/parallelism flags;
+argparse rejects them like any unknown flag.
 """
 from __future__ import annotations
 
@@ -55,13 +58,14 @@ import torch
 
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import restore_pretrained
-from medvill_torch.cli import str2bool
+from medvill_torch.cli import collect_metrics, str2bool
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   RetrievalConfig)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
 from medvill_torch.data.retrieval import CXRRetrievalDataset, collate_pairs
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train import retrieve
+from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.utils import preempt
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
@@ -112,6 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="True: CXRBERT joint-encoder retrieval; False: the "
                         "late-fusion CNN_BERT baseline (reference: "
                         "full_dset_retrieval.py:656,549-555)")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="train micro-steps per dispatch (CUDA graphs "
+                        "replayed over stacked pos+neg pair batches; the "
+                        "JAX CLI's lax.scan) — amortizes per-dispatch "
+                        "host/runtime overhead; no reference equivalent")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -174,6 +183,7 @@ def train(args) -> dict:
     else:
         train_step = retrieve.make_cnn_train_step(cfg)
         score_step = retrieve.make_cnn_score_step(cfg)
+    multi_step = MultiStep(train_step, max(1, args.steps_per_dispatch))
     valid_path, test_path = _pools(args)
     rank_dump = os.path.join(cfg.output_path, "rank_result_at_eval.json")
     metrics_path = os.path.join(cfg.output_path, "metrics.jsonl")
@@ -221,11 +231,12 @@ def train(args) -> dict:
         with preempt.PreemptionGuard(logger=logger) as guard:
             for epoch in range(cfg.epochs):
                 t0 = time.perf_counter()
-                losses, accs = [], []
-                for batch in dispatch_loader(pair_batches(epoch), device):
-                    m = train_step(state, batch, generator)
-                    losses.append(m["loss"])
-                    accs.append(m["acc"])
+                agg: Dict[str, List[torch.Tensor]] = {}
+                for batch, is_group in dispatch_loader(
+                        pair_batches(epoch), device, k=multi_step.k):
+                    m = (multi_step if is_group else train_step)(
+                        state, batch, generator)
+                    collect_metrics(agg, m, is_group)
                     if guard.triggered:
                         _save(state.model, os.path.join(
                             cfg.output_path, f"model.{epoch}.bin"))
@@ -234,9 +245,10 @@ def train(args) -> dict:
                                     cfg.output_path)
                         return {"epochs": rows, "test": None,
                                 "loaded": loaded}
+                losses = agg["loss"]
                 row = {"epoch": epoch,
                        "train_loss": torch.stack(losses).mean().item(),
-                       "train_acc": torch.stack(accs).mean().item()}
+                       "train_acc": torch.stack(agg["acc"]).mean().item()}
                 row["epoch_time_s"] = time.perf_counter() - t0
                 row["micro_steps"] = len(losses)
                 row["examples_per_s"] = (2 * B * len(losses)

@@ -1,8 +1,9 @@
 """Pretraining data pipeline: JSONL -> numpy batches of (ids, labels, spec)
-(a copy of medvill_tpu/data/pretrain.py without its multi-host sharding,
-mid-epoch resume and batch grouping), and the training CLIs' input
-pipeline, ``dispatch_loader``: a ``PrefetchLoader`` that builds and places
-the next batches on the device on a background thread while the step runs.
+(a copy of medvill_tpu/data/pretrain.py without its multi-host sharding and
+mid-epoch resume), and the training CLIs' input pipeline,
+``dispatch_loader``: a ``PrefetchLoader`` that builds, groups
+(``grouped_batches``, for k micro-steps per dispatch) and places the next
+batches on the device on a background thread while the step runs.
 
 Each example carries a 2-int mask spec ``(variant, txt_len)`` instead of an
 ``[L, L]`` mask (data/masks.py).  JSONL schema (reference:
@@ -256,57 +257,80 @@ def _select(batch: dict, keys: Optional[Sequence[str]]) -> dict:
                                        if k in batch}
 
 
+def grouped_batches(loader, k: int):
+    """Groups of k host batches stacked into ``([k, B, ...] arrays, True)``
+    for a k-micro-steps-per-dispatch step; the (at most k - 1) tail batches
+    of an epoch come out alone as ``([B, ...], False)``, so a short epoch
+    (fewer than k batches) and an epoch's tail still train, through the
+    single-step path (medvill_tpu/data/pretrain.py:265-281)."""
+    buf = []
+    for b in loader:
+        buf.append(b)
+        if len(buf) == k:
+            yield {key: np.stack([x[key] for x in buf]) for key in buf[0]}, \
+                True
+            buf = []
+    for b in buf:
+        yield b, False
+
+
 class _CudaPrefetch:
     """``dispatch_loader`` on a CUDA device: the producer copies each batch
-    into pinned host memory and from there to the device on a side stream
-    (``non_blocking``: a copy from pageable memory would synchronize); the
-    consumer's stream waits on that copy's event before the batch is
-    handed out, and each tensor is ``record_stream``-ed to the consumer's
-    stream so the allocator does not reuse it while the step reads it."""
+    (or group) into pinned host memory and from there to the device on a
+    side stream (``non_blocking``: a copy from pageable memory would
+    synchronize); the consumer's stream waits on that copy's event before
+    the batch is handed out, and each tensor is ``record_stream``-ed to the
+    consumer's stream so the allocator does not reuse it while the step
+    reads it."""
 
-    def __init__(self, loader, device: torch.device, keys):
-        self.loader, self.device, self.keys = loader, device, keys
-
-    def __len__(self):
-        return len(self.loader)
+    def __init__(self, items, device: torch.device):
+        self.items, self.device = items, device
 
     def __iter__(self):
         copy_stream = torch.cuda.Stream(self.device)
 
-        def place(batch):
+        def place(item):
+            batch, is_group = item
             with torch.cuda.device(self.device), \
                     torch.cuda.stream(copy_stream):
                 out = {k: torch.from_numpy(np.ascontiguousarray(v))
                        .pin_memory().to(self.device, non_blocking=True)
-                       for k, v in _select(batch, self.keys).items()}
+                       for k, v in batch.items()}
                 done = torch.cuda.Event()
                 done.record(copy_stream)
-            return out, done
+            return out, is_group, done
 
-        it = iter(PrefetchLoader(self.loader, place_fn=place))
+        it = iter(PrefetchLoader(self.items, place_fn=place))
         try:
-            for out, done in it:
+            for out, is_group, done in it:
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(done)
                 for t in out.values():
                     t.record_stream(stream)
-                yield out
+                yield out, is_group
         finally:
             it.close()
 
 
-def dispatch_loader(loader, device, keys: Optional[Sequence[str]] = None):
-    """The training CLIs' input pipeline (medvill_tpu/data/pretrain.py:284
-    with one micro-step per dispatch): iterates ``loader``'s numpy batches
-    on a background thread and yields them as tensors on ``device`` (only
-    ``keys``, when given), up to two batches ahead of the consumer, in the
-    loader's order."""
+def dispatch_loader(loader, device, keys: Optional[Sequence[str]] = None,
+                    k: int = 1):
+    """The training CLIs' input pipeline (medvill_tpu/data/pretrain.py:284):
+    iterates ``loader``'s numpy batches (only ``keys``, when given) on a
+    background thread and yields ``(batch, is_group)`` with the tensors on
+    ``device``, up to two ahead of the consumer, in the loader's order.
+    With ``k > 1`` a batch is a group of k stacked ``[k, B, ...]`` in one
+    pinned copy per key (``grouped_batches``, ``is_group`` True) or one of
+    an epoch's tail batches (``is_group`` False); with k = 1 every batch
+    comes alone."""
     device = torch.device(device)
+    selected = (_select(b, keys) for b in loader)
+    items = (grouped_batches(selected, k) if k > 1
+             else ((b, False) for b in selected))
     if device.type == "cuda":
-        return _CudaPrefetch(loader, device, keys)
-    return PrefetchLoader(loader, place_fn=lambda b: {
-        k: torch.as_tensor(v).to(device)
-        for k, v in _select(b, keys).items()})
+        return _CudaPrefetch(items, device)
+    return PrefetchLoader(items, place_fn=lambda item: (
+        {n: torch.as_tensor(v).to(device) for n, v in item[0].items()},
+        item[1]))
 
 
 def synthetic_records(n: int, rng: Optional[random.Random] = None,

@@ -86,7 +86,9 @@ class MultimodalBertEncoder(nn.Module):
         emb = self.txt_embeddings
         img_vecs = dense(self.img_embeddings["img_embeddings"],
                          self.image_features(image, train_cnn), self.dtype)
-        ids = torch.tensor([cls_id, sep_id], device=input_txt.device)
+        # (cls_id, sep_id) made on the device: no host copy in a captured step
+        ids = cls_id + (sep_id - cls_id) * torch.arange(
+            2, device=input_txt.device)
         cls_emb, sep_emb = emb.word_embeddings(ids).to(img_vecs.dtype)
         hid = img_vecs.shape[-1]
         tokens = torch.cat([cls_emb.expand(B, 1, hid), img_vecs,

@@ -11,15 +11,21 @@ convolutions run NCHW inside.  Parameters sit under the reference's
   trick with the same math; the port runs the plain 7x7/s2 conv on the same
   weights.
 - BatchNorm (eps 1e-5) runs in f32 on the compute-dtype conv output (f64
-  on an f64 one), like flax ``BatchNorm(dtype=...)``.  In eval mode (``train=False``, serving) it
-  uses the running statistics.  In train mode (``train=True``, pretraining
-  with ``train_cnn``) it follows flax ``BatchNorm(use_running_average=False,
-  momentum=0.9)`` (medvill_tpu/models/resnet.py:79-82,142-144), not torch's
-  training-mode ``batch_norm``: it normalizes with the batch statistics,
-  ``var = mean(x^2) - mean(x)^2`` clipped at 0 (flax ``_compute_stats``),
-  and updates the running statistics in place with that *biased* variance,
-  ``r = 0.9 r + 0.1 batch``.  This holds even when the trunk is frozen: a
-  frozen trunk gets no gradient, but its statistics still move.
+  on an f64 one), like flax ``BatchNorm(dtype=...)``, and returns the
+  compute dtype.  In eval mode (``train=False``, serving) it uses the
+  running statistics.  In train mode (``train=True``, pretraining with
+  ``train_cnn``) it follows flax ``BatchNorm(use_running_average=False,
+  momentum=0.9)`` (medvill_tpu/models/resnet.py:79-82,142-144): it
+  normalizes with the batch statistics and the biased variance, and
+  updates the running statistics in place with that *biased* variance,
+  ``r = 0.9 r + 0.1 batch`` (torch's own update would take the unbiased
+  one).  This holds even when the trunk is frozen: a frozen trunk gets no
+  gradient, but its statistics still move.  The train-mode op is one
+  ``torch.native_batch_norm`` per BatchNorm with no running buffers given:
+  autograd saves the compute-dtype conv output and the per-channel f32
+  mean and inverse std, nothing else, so a trained trunk keeps the bf16
+  conv, ReLU and block outputs (and the max-pool indices) and no f32
+  copy of any activation.
 - Convolutions run in ``dtype`` (bf16 when serving); the caller decides
   whether cuDNN may use TF32 for f32 convolutions.
 - ``fibers`` flattens the map; ``pooled_fibers`` and ``half_pooled_fibers``
@@ -27,6 +33,8 @@ convolutions run NCHW inside.  Parameters sit under the reference's
   medvill_tpu/models/resnet.py:173-227).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,18 +53,24 @@ BN_MOMENTUM = 0.9  # flax convention: running = 0.9 running + 0.1 batch
 
 def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
         train: bool = False) -> torch.Tensor:
-    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if not train:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps).to(dtype)
-    mean = xf.mean((0, 2, 3))
-    var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean, min=0.0)
+    # one pass over x: the batch statistics (f32, f64 on f64 input) and the
+    # output in x's dtype; autograd keeps only x, mean and invstd.  No
+    # running buffers go in: torch would move them with the unbiased
+    # variance, flax moves them with the biased one, recovered here from
+    # invstd = (var + eps)^-1/2.
+    w, b = bn.weight, bn.bias
+    if x.dtype == torch.float64:
+        w, b = w.double(), b.double()
+    y, mean, invstd = torch.native_batch_norm(x, w, b, None, None, True,
+                                              0.0, bn.eps)
     with torch.no_grad():
+        var = invstd.pow(-2).sub_(bn.eps).clamp_(min=0.0)
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
         bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
-    shape = (1, -1, 1, 1)
-    y = ((xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + bn.eps)
-         * bn.weight.view(shape) + bn.bias.view(shape))
     return y.to(dtype)
 
 
@@ -96,9 +110,16 @@ def device_normalize(x: torch.Tensor) -> torch.Tensor:
     (medvill_tpu resnet.py:105-119); float inputs pass through."""
     if x.dtype != torch.uint8:
         return x
-    mean = torch.from_numpy(IMAGENET_MEAN).to(x.device)
-    std = torch.from_numpy(IMAGENET_STD).to(x.device)
+    mean, std = _imagenet_stats(x.device)
     return (x.float() / 255.0 - mean) / std
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """The normalization constants on ``device``, copied there once (no
+    host-to-device copy inside a captured step)."""
+    return (torch.from_numpy(IMAGENET_MEAN).to(device),
+            torch.from_numpy(IMAGENET_STD).to(device))
 
 
 class ResNet50Trunk(nn.Module):

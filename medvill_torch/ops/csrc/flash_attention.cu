@@ -95,7 +95,11 @@
 // fmix32(seed ^ (((b * heads + head) * L + r) * L + c)) >= floor(rate*2^32)
 // in uint32 arithmetic.  medvill_torch/ops/flash_attention.py::keep_mask
 // computes the same bits, so forward, backward and the plain version agree
-// bit for bit; none of them gives the TPU PRNG's bits.
+// bit for bit; none of them gives the TPU PRNG's bits.  The seed is the
+// launch's uint32 plus, where seed_ptr is not null, the uint32 at seed_ptr
+// in device memory (the JAX kernels' seed_ref): a CUDA graph that captured
+// the launch reads the word anew at every replay, so each replay draws the
+// mask of the seed the host wrote there before it.
 //
 // C interface for ctypes: pointers and the stream as void*, each entry point
 // returns cudaGetLastError() after its launches.  Allocates nothing; runs on
@@ -239,8 +243,13 @@ __device__ __forceinline__ const T* row_ptr(const T* base, int b, int r, int L, 
 
 struct Args {
   int L, heads, img_block, l_real, family, dropout;
+  const uint32_t* seed_ptr;
   uint32_t seed, thresh;
   float drop_scale, scale;
+  // made on the host, so that no register holds them (the device seed
+  // takes one where the launch's seed took none)
+  float scale_log2e;  // scale * log2(e)
+  int n_tiles;        // ceil(L / kTile)
 };
 
 __device__ __forceinline__ Spec make_spec(const int* spec, int b, const Args& a) {
@@ -248,7 +257,8 @@ __device__ __forceinline__ Spec make_spec(const int* spec, int b, const Args& a)
 }
 
 __device__ __forceinline__ Dropout make_dropout(int b, int h, const Args& a) {
-  return Dropout{a.dropout, a.seed, a.thresh, a.drop_scale,
+  const uint32_t seed = (a.dropout && a.seed_ptr) ? a.seed + __ldg(a.seed_ptr) : a.seed;
+  return Dropout{a.dropout, seed, a.thresh, a.drop_scale,
                  (static_cast<uint32_t>(b) * a.heads + h) * static_cast<uint32_t>(a.L),
                  static_cast<uint32_t>(a.L)};
 }
@@ -477,7 +487,7 @@ attn_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int m0 = (threadIdx.x >> 3) * 4, n0 = (threadIdx.x & 7) * 4;
   const Spec sp = make_spec(spec, b, a);
   const Dropout dr = make_dropout(b, h, a);
-  const size_t row_base = (static_cast<size_t>(b) * a.heads + h) * L;
+  const size_t row_base = dr.base;  // (b * heads + h) * L
 
   load_tile_t(Kt, k, b, c0, L, a.heads, h);
   load_tile_t(Vt, v, b, c0, L, a.heads, h);
@@ -564,7 +574,7 @@ attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int m0 = (threadIdx.x >> 3) * 4, n0 = (threadIdx.x & 7) * 4;
   const Spec sp = make_spec(spec, b, a);
   const Dropout dr = make_dropout(b, h, a);
-  const size_t row_base = (static_cast<size_t>(b) * a.heads + h) * L;
+  const size_t row_base = dr.base;  // (b * heads + h) * L
 
   load_tile_t(Qt, q, b, r0, L, a.heads, h);
   load_tile_t(dOt, dout, b, r0, L, a.heads, h);
@@ -814,8 +824,8 @@ attn_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const Spec sp = make_spec(spec, b, a);
   const Dropout dr = make_dropout(b, h, a);
-  const int n = (L + kTile - 1) / kTile;
-  const float sl2 = a.scale * kLog2e, neg2 = kNeg * kLog2e;
+  const int n = a.n_tiles;
+  const float sl2 = a.scale_log2e, neg2 = kNeg * kLog2e;
 
   load_tile_async(Qs, q, b, r0, L, a.heads, h);
   cp_async_commit();
@@ -955,9 +965,9 @@ attn_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const Spec sp = make_spec(spec, b, a);
   const Dropout dr = make_dropout(b, h, a);
-  const int n = (L + kTile - 1) / kTile;
-  const float sl2 = a.scale * kLog2e, neg2 = kNeg * kLog2e;
-  const size_t row_base = (static_cast<size_t>(b) * a.heads + h) * L;
+  const int n = a.n_tiles;
+  const float sl2 = a.scale_log2e, neg2 = kNeg * kLog2e;
+  const size_t row_base = dr.base;  // (b * heads + h) * L
 
   load_tile_async(Ks, k, b, c0, L, a.heads, h);
   load_tile_async(Vs, v, b, c0, L, a.heads, h);
@@ -1079,9 +1089,9 @@ attn_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const Spec sp = make_spec(spec, b, a);
   const Dropout dr = make_dropout(b, h, a);
-  const int n = (L + kTile - 1) / kTile;
-  const float sl2 = a.scale * kLog2e, neg2 = kNeg * kLog2e;
-  const size_t row_base = (static_cast<size_t>(b) * a.heads + h) * L;
+  const int n = a.n_tiles;
+  const float sl2 = a.scale_log2e, neg2 = kNeg * kLog2e;
+  const size_t row_base = dr.base;  // (b * heads + h) * L
 
   load_tile_async(Qs, q, b, r0, L, a.heads, h);
   load_tile_async(dOs, dout, b, r0, L, a.heads, h);
@@ -1182,8 +1192,11 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
 }
 
 Args make_args(int L, int heads, int img_block, int l_real, int family, int dropout,
-               unsigned seed, unsigned thresh, float drop_scale, float scale) {
-  return Args{L, heads, img_block, l_real, family, dropout, seed, thresh, drop_scale, scale};
+               const void* seed_ptr, unsigned seed, unsigned thresh, float drop_scale,
+               float scale) {
+  return Args{L,    heads,  img_block, l_real,     family, dropout,
+              static_cast<const uint32_t*>(seed_ptr), seed, thresh, drop_scale, scale,
+              scale * kLog2e, (L + kTile - 1) / kTile};
 }
 
 // One launch: lifts the kernel's shared-memory limit (once), launches it on
@@ -1260,11 +1273,11 @@ int bwd(const void* q, const void* k, const void* v, const void* o, const void* 
 extern "C" int medvill_attn_fwd(const void* q, const void* k, const void* v, const int* spec,
                                 void* o, float* lse, int B, int L, int heads, int is_bf16,
                                 int img_block, int l_real, int family, int dropout,
-                                unsigned int seed, unsigned int thresh, float drop_scale,
-                                float scale, void* stream) {
+                                const void* seed_ptr, unsigned int seed, unsigned int thresh,
+                                float drop_scale, float scale, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  const Args a = make_args(L, heads, img_block, l_real, family, dropout, seed, thresh,
-                           drop_scale, scale);
+  const Args a = make_args(L, heads, img_block, l_real, family, dropout, seed_ptr, seed,
+                           thresh, drop_scale, scale);
   return fwd(q, k, v, spec, o, lse, B, is_bf16 != 0, a, static_cast<cudaStream_t>(stream));
 }
 
@@ -1273,11 +1286,11 @@ extern "C" int medvill_attn_bwd(const void* q, const void* k, const void* v, con
                                 const void* dout, const float* lse, const int* spec, void* dq,
                                 void* dk, void* dv, float* dvec, int B, int L, int heads,
                                 int is_bf16, int img_block, int l_real, int family, int dropout,
-                                unsigned int seed, unsigned int thresh, float drop_scale,
-                                float scale, void* stream) {
+                                const void* seed_ptr, unsigned int seed, unsigned int thresh,
+                                float drop_scale, float scale, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  const Args a = make_args(L, heads, img_block, l_real, family, dropout, seed, thresh,
-                           drop_scale, scale);
+  const Args a = make_args(L, heads, img_block, l_real, family, dropout, seed_ptr, seed,
+                           thresh, drop_scale, scale);
   return bwd(q, k, v, o, dout, lse, spec, dq, dk, dv, dvec, B, is_bf16 != 0, a,
              static_cast<cudaStream_t>(stream));
 }

@@ -23,7 +23,11 @@
 // fmix32(seed ^ (row * H + col)) >= floor(rate * 2^32), all in uint32
 // arithmetic.  medvill_torch/ops/fused_ln.py::keep_mask computes the same
 // bits, so the kernel and its plain version agree bit for bit at any rate;
-// neither gives the TPU PRNG's bits.
+// neither gives the TPU PRNG's bits.  The seed is the launch's uint32 plus,
+// where seed_ptr is not null, the uint32 at seed_ptr in device memory (the
+// JAX kernels' seed_ref): a CUDA graph that captured the launch keeps the
+// constant and reads the word anew at every replay, so the host rewrites
+// the word between replays and each replay draws a fresh mask.
 //
 // K4 replaces medvill_tpu/ops/fused_ln.py::_bwd_kernel: it recomputes the
 // keep mask and the two-pass row statistics from (x, res, seed), then
@@ -131,9 +135,11 @@ template <typename T, int MAXC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 fused_ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                     const float* __restrict__ gamma, const float* __restrict__ beta,
-                    T* __restrict__ y, int rows, int h, int dropout, uint32_t seed,
-                    uint32_t thresh, float scale, float eps) {
+                    T* __restrict__ y, int rows, int h, int dropout,
+                    const uint32_t* __restrict__ seed_ptr, uint32_t seed, uint32_t thresh,
+                    float scale, float eps) {
   using V = Vec16<T>;
+  if (dropout && seed_ptr) seed += __ldg(seed_ptr);
   constexpr int N = V::N;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -294,9 +300,10 @@ fused_ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                     const float* __restrict__ gamma, const T* __restrict__ dy,
                     T* __restrict__ dx, T* __restrict__ dres, float* __restrict__ dgb,
                     float* __restrict__ scratch, unsigned* __restrict__ tickets, int rows,
-                    int h, int group, int dropout, uint32_t seed, uint32_t thresh, float scale,
-                    float eps) {
+                    int h, int group, int dropout, const uint32_t* __restrict__ seed_ptr,
+                    uint32_t seed, uint32_t thresh, float scale, float eps) {
   using V = Vec16<T>;
+  if (dropout && seed_ptr) seed += __ldg(seed_ptr);
   using Raw = typename V::Raw;
   constexpr int N = V::N, kWarps = bwd_warps<T, C>();
   static_assert(C * N <= 32, "the keep bits of a lane fit one uint32");
@@ -490,6 +497,7 @@ struct BwdArgs {
   const void *x, *res, *gamma, *dy;
   void *dx, *dres, *dgb, *scratch, *tickets;
   int rows, h, n_blocks, dropout;
+  const uint32_t* seed_ptr;
   uint32_t seed, thresh;
   float scale, eps;
   cudaStream_t stream;
@@ -524,7 +532,8 @@ int bwd_run(const BwdArgs& a, int* occupancy) {
       static_cast<const T*>(a.x), static_cast<const T*>(a.res),
       static_cast<const float*>(a.gamma), static_cast<const T*>(a.dy), static_cast<T*>(a.dx),
       static_cast<T*>(a.dres), static_cast<float*>(a.dgb), static_cast<float*>(a.scratch),
-      static_cast<unsigned*>(a.tickets), a.rows, a.h, group, a.dropout, a.seed, a.thresh,
+      static_cast<unsigned*>(a.tickets), a.rows, a.h, group, a.dropout, a.seed_ptr, a.seed,
+      a.thresh,
       a.scale, a.eps);
   return static_cast<int>(cudaGetLastError());
 }
@@ -554,10 +563,11 @@ int bwd_dispatch(bool is_bf16, const BwdArgs& a, int* occupancy) {
 // 16-byte vector (8 bf16 / 4 f32) and at most 1024; the Python wrapper checks.
 extern "C" int medvill_fused_ln_fwd(const void* x, const void* res, const void* gamma,
                                     const void* beta, void* y, int rows, int h,
-                                    int is_bf16, int dropout, unsigned int seed,
-                                    unsigned int thresh, float scale, float eps,
-                                    void* stream) {
+                                    int is_bf16, int dropout, const void* seed_ptr,
+                                    unsigned int seed, unsigned int thresh, float scale,
+                                    float eps, void* stream) {
   if (rows <= 0) return 0;
+  const uint32_t* sp = static_cast<const uint32_t*>(seed_ptr);
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -566,11 +576,11 @@ extern "C" int medvill_fused_ln_fwd(const void* x, const void* res, const void* 
   if (is_bf16) {
     fused_ln_fwd_kernel<__nv_bfloat16, 4><<<grid, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(res), g, b,
-        static_cast<__nv_bfloat16*>(y), rows, h, dropout, seed, thresh, scale, eps);
+        static_cast<__nv_bfloat16*>(y), rows, h, dropout, sp, seed, thresh, scale, eps);
   } else {
     fused_ln_fwd_kernel<float, 8><<<grid, block, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(res), g, b,
-        static_cast<float*>(y), rows, h, dropout, seed, thresh, scale, eps);
+        static_cast<float*>(y), rows, h, dropout, sp, seed, thresh, scale, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -595,11 +605,13 @@ extern "C" int medvill_fused_ln_bwd_occupancy(int h, int is_bf16, int* out) {
 extern "C" int medvill_fused_ln_bwd(const void* x, const void* res, const void* gamma,
                                     const void* dy, void* dx, void* dres, void* dgb,
                                     void* scratch, void* tickets, int rows, int h,
-                                    int n_blocks, int is_bf16, int dropout, unsigned int seed,
+                                    int n_blocks, int is_bf16, int dropout,
+                                    const void* seed_ptr, unsigned int seed,
                                     unsigned int thresh, float scale, float eps,
                                     void* stream) {
   if (rows <= 0 || n_blocks <= 0) return 0;
   const BwdArgs a{x, res, gamma, dy, dx, dres, dgb, scratch, tickets, rows, h, n_blocks,
-                  dropout, seed, thresh, scale, eps, static_cast<cudaStream_t>(stream)};
+                  dropout, static_cast<const uint32_t*>(seed_ptr), seed, thresh, scale, eps,
+                  static_cast<cudaStream_t>(stream)};
   return bwd_dispatch(is_bf16 != 0, a, nullptr);
 }

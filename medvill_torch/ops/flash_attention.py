@@ -36,8 +36,12 @@ bit; in f32 they keep f32 CUDA-core products.
 Dropout keep mask: ``keep_mask`` below, a pure function of (seed, b, head,
 r, c): kept iff ``fmix32(seed ^ (((b * heads + head) * L + r) * L + c)) >=
 floor(rate * 2**32)`` in uint32 arithmetic, computed the same way by the
-kernels, so K1, K2 and the plain versions agree bit for bit.  It does not
-reproduce the TPU PRNG; the JAX and torch outputs agree only at rate 0.
+kernels, so K1, K2 and the plain versions agree bit for bit.  The seed is
+an int or an ``ops.dropout.DeviceSeed``, which K1 and K2 read from device
+memory (a CUDA graph that captured them draws a new mask per replay); the
+plain versions take both forms and give the same mask for the same seed
+value.  It does not reproduce the TPU PRNG; the JAX and torch outputs
+agree only at rate 0.
 """
 from __future__ import annotations
 
@@ -51,7 +55,8 @@ import torch
 from medvill_torch.data import masks
 from medvill_torch.data.masks import FAMILY_PRETRAIN, FAMILY_SEQ2SEQ  # noqa: F401
 from medvill_torch.ops import build
-from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.ops.dropout import (DeviceSeed, DropoutRNG, Seed,
+                                       seed_args, seed_value)
 from medvill_torch.ops.fused_ln import _M32, _fmix32, _threshold
 
 NEG = -10000.0
@@ -71,13 +76,13 @@ def score_bias(spec: torch.Tensor, L: int, img_block: int, l_real: int,
     return torch.where(vis & (c < l_real), 0.0, NEG)
 
 
-def keep_mask(seed: int, B: int, heads: int, L: int, rate: float,
+def keep_mask(seed: Seed, B: int, heads: int, L: int, rate: float,
               device="cpu") -> torch.Tensor:
     """[B, heads, L, L] bool attention-dropout keep mask (see the module
     docstring)."""
     idx = torch.arange(B * heads * L * L, dtype=torch.int64,
                        device=device) & _M32
-    bits = _fmix32(idx ^ (int(seed) & _M32))
+    bits = _fmix32(idx ^ seed_value(seed))
     return (bits >= _threshold(rate)).view(B, heads, L, L)
 
 
@@ -89,7 +94,7 @@ def _scores(q, k, spec, img_block, l_real, family):
 
 
 def attn_fwd_plain(q, k, v, spec, *, img_block: int, l_real: int,
-                   family: int, rate: float, seed: int):
+                   family: int, rate: float, seed: Seed):
     """The plain PyTorch version of K1: (o [B, L, heads, D] in q's dtype,
     lse [B, heads, L] f32).  Dropout acts on the probabilities before P.V;
     O is divided by the undropped row sum."""
@@ -126,7 +131,7 @@ def _bwd_terms(q, k, v, o, do, lse, spec, img_block, l_real, family, rate,
 
 
 def attn_bwd_plain(q, k, v, o, do, lse, spec, *, img_block: int,
-                   l_real: int, family: int, rate: float, seed: int):
+                   l_real: int, family: int, rate: float, seed: Seed):
     """The plain PyTorch version of K2's recompute backward: (dq, dk, dv)
     in q's dtype.  P = exp(S - lse); dV = P_drop^T dO; dP = (dO V^T) * keep
     / (1 - rate); dS = P * (dP - rowsum(dO * O)); dQ = dS K * scale;
@@ -142,7 +147,7 @@ def attn_bwd_plain(q, k, v, o, do, lse, spec, *, img_block: int,
 
 def bf16_tolerances(q, k, v, o, do, lse, spec, plain: dict, *,
                     img_block: int, l_real: int, family: int, rate: float,
-                    seed: int) -> dict:
+                    seed: Seed) -> dict:
     """Worst-case |kernel - plain version| of the bf16 kernels' o, dq, dk
     and dv, from where they round, with u = 2^-8 the unit roundoff of bf16
     (8 significant bits).  ``plain`` holds the plain versions' outputs;
@@ -180,8 +185,8 @@ def _kernels():
     lib = build.library("flash_attention")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     fwd, bwd = lib.medvill_attn_fwd, lib.medvill_attn_bwd
-    fwd.argtypes = [p] * 6 + [i] * 8 + [u, u, f, f, p]
-    bwd.argtypes = [p] * 11 + [i] * 8 + [u, u, f, f, p]
+    fwd.argtypes = [p] * 6 + [i] * 8 + [p, u, u, f, f, p]
+    bwd.argtypes = [p] * 11 + [i] * 8 + [p, u, u, f, f, p]
     fwd.restype = bwd.restype = i
     return fwd, bwd
 
@@ -215,12 +220,13 @@ def _check(spec, *tensors) -> None:
 def _scalars(q, img_block, l_real, family, rate, seed):
     B, L, heads, D = q.shape
     return (B, L, heads, int(q.dtype == torch.bfloat16), int(img_block),
-            int(l_real), int(family), int(rate > 0.0), int(seed) & _M32,
-            _threshold(rate), 1.0 / (1.0 - rate), 1.0 / math.sqrt(D))
+            int(l_real), int(family), int(rate > 0.0),
+            *seed_args(seed, q.device), _threshold(rate), 1.0 / (1.0 - rate),
+            1.0 / math.sqrt(D))
 
 
 def attn_fwd(q, k, v, spec, *, img_block: int, l_real: int, family: int,
-             rate: float, seed: int):
+             rate: float, seed: Seed):
     """(o, lse): the plain version for CPU tensors, K1 for CUDA ones."""
     if q.device.type == "cpu":
         return attn_fwd_plain(q, k, v, spec, img_block=img_block,
@@ -249,7 +255,7 @@ attn_fwd.launches = 0
 
 
 def attn_bwd(q, k, v, o, do, lse, spec, *, img_block: int, l_real: int,
-             family: int, rate: float, seed: int):
+             family: int, rate: float, seed: Seed):
     """(dq, dk, dv): the plain version for CPU tensors, K2 for CUDA ones
     (three launches, counted as one)."""
     if q.device.type == "cpu":
@@ -343,13 +349,16 @@ class _FlashMHA(torch.autograd.Function):
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               spec: torch.Tensor, *, img_block: int, l_real: int,
               family: int = FAMILY_PRETRAIN, dropout_rate: float = 0.0,
-              seed: int = 0, deterministic: bool = True) -> torch.Tensor:
-    """q/k/v: [B, L, heads, D]; spec: [B, 2] int32 (variant, txt_len).
-    Returns [B, L, heads, D] in q's dtype, differentiable in q, k, v."""
+              seed: Seed = 0, deterministic: bool = True) -> torch.Tensor:
+    """q/k/v: [B, L, heads, D]; spec: [B, 2] int32 (variant, txt_len);
+    seed: an int or a ``DeviceSeed``.  Returns [B, L, heads, D] in q's
+    dtype, differentiable in q, k, v."""
     rate = 0.0 if deterministic else float(dropout_rate)
+    if not isinstance(seed, DeviceSeed):
+        seed = int(seed)
     return _FlashMHA.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                            spec.to(torch.int32).contiguous(), int(img_block),
-                           int(l_real), int(family), rate, int(seed))
+                           int(l_real), int(family), rate, seed)
 
 
 def make_attention_fn(spec: torch.Tensor, img_block: int,

@@ -17,8 +17,11 @@ Dropout keep mask: ``keep_mask`` below, a pure function of
 floor(rate * 2**32)`` in uint32 arithmetic (murmur3's finaliser).  The
 kernel computes the same bits, so kernel and plain version agree bit for bit
 at any rate, and a backward kernel can regenerate the mask from the seed.
-It does not reproduce the TPU PRNG's bits, which nothing can; the JAX and
-torch outputs agree only at rate 0.
+The seed is an int or an ``ops.dropout.DeviceSeed``, which K3 and K4 read
+from device memory (so a CUDA graph that captured them draws a new mask
+per replay); the plain versions take both forms and give the same mask for
+the same seed value.  It does not reproduce the TPU PRNG's bits, which
+nothing can; the JAX and torch outputs agree only at rate 0.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ import functools
 import torch
 
 from medvill_torch.ops import build
-
-_M32 = 0xFFFFFFFF
+from medvill_torch.ops.dropout import M32 as _M32
+from medvill_torch.ops.dropout import (DeviceSeed, Seed, seed_args,
+                                       seed_value)
 _MAX_H = 1024
 
 
@@ -55,18 +59,18 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
-def keep_mask(seed: int, rows: int, h: int, rate: float,
+def keep_mask(seed: Seed, rows: int, h: int, rate: float,
               device="cpu") -> torch.Tensor:
     """[rows, h] bool dropout keep mask (see the module docstring)."""
     idx = torch.arange(rows * h, dtype=torch.int64, device=device) & _M32
-    bits = _fmix32(idx ^ (int(seed) & _M32))
+    bits = _fmix32(idx ^ seed_value(seed))
     return (bits >= _threshold(rate)).reshape(rows, h)
 
 
 def fused_dropout_add_ln_plain(x: torch.Tensor, res: torch.Tensor,
                                gamma: torch.Tensor, beta: torch.Tensor, *,
                                rate: float, eps: float,
-                               seed: int) -> torch.Tensor:
+                               seed: Seed) -> torch.Tensor:
     """The plain PyTorch version of the kernel's arithmetic."""
     shape = x.shape
     h = shape[-1]
@@ -83,7 +87,7 @@ def fused_dropout_add_ln_plain(x: torch.Tensor, res: torch.Tensor,
 
 def fused_dropout_add_ln_bwd_plain(x: torch.Tensor, res: torch.Tensor,
                                    gamma: torch.Tensor, dy: torch.Tensor, *,
-                                   rate: float, eps: float, seed: int):
+                                   rate: float, eps: float, seed: Seed):
     """The plain PyTorch version of K4's arithmetic: (dx, dres, dgamma,
     dbeta), dx in x's dtype, dres in res's, dgamma/dbeta f32."""
     shape = x.shape
@@ -115,8 +119,9 @@ def _kernels():
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     fwd, bwd = lib.medvill_fused_ln_fwd, lib.medvill_fused_ln_bwd
     occupancy = lib.medvill_fused_ln_bwd_occupancy
-    fwd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, f, f, p]
-    bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, u, u, f, f, p]
+    fwd.argtypes = [p, p, p, p, p, i, i, i, i, p, u, u, f, f, p]
+    bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p, u, u, f, f,
+                    p]
     occupancy.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
     fwd.restype = bwd.restype = occupancy.restype = i
     return fwd, bwd, occupancy
@@ -146,7 +151,7 @@ def _check(x, res, gamma, beta) -> None:
 
 def fused_ln_fwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
                  beta: torch.Tensor, *, rate: float, eps: float,
-                 seed: int) -> torch.Tensor:
+                 seed: Seed) -> torch.Tensor:
     """The forward: the plain version for CPU tensors, K3 for CUDA ones."""
     if x.device.type == "cpu":
         return fused_dropout_add_ln_plain(x, res, gamma, beta, rate=rate,
@@ -161,7 +166,7 @@ def fused_ln_fwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
         err = _kernels()[0](
             x.data_ptr(), res.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             y.data_ptr(), x.numel() // h, h, int(x.dtype == torch.bfloat16),
-            int(rate > 0.0), int(seed) & _M32, thresh,
+            int(rate > 0.0), *seed_args(seed, x.device), thresh,
             1.0 / (1.0 - rate), eps,
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -210,7 +215,7 @@ def _ticket_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def fused_ln_bwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
-                 dy: torch.Tensor, *, rate: float, eps: float, seed: int):
+                 dy: torch.Tensor, *, rate: float, eps: float, seed: Seed):
     """The backward, (dx, dres, dgamma, dbeta): the plain version for CPU
     tensors, K4 for CUDA ones.  K4 is one launch, dgamma and dbeta included,
     on a persistent grid (``bwd_grid``)."""
@@ -243,7 +248,7 @@ def fused_ln_bwd(x: torch.Tensor, res: torch.Tensor, gamma: torch.Tensor,
             x.data_ptr(), res.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
             dx.data_ptr(), dres.data_ptr(), dgb.data_ptr(),
             scratch.data_ptr(), tickets.data_ptr(), rows, h, n_blocks,
-            int(bf16), int(rate > 0.0), int(seed) & _M32, thresh,
+            int(bf16), int(rate > 0.0), *seed_args(seed, x.device), thresh,
             1.0 / (1.0 - rate), eps, stream)
     if err:
         raise RuntimeError(f"fused_ln backward kernel launch failed: CUDA "
@@ -274,11 +279,13 @@ class _FusedDropAddLN(torch.autograd.Function):
 
 def fused_dropout_add_ln(x: torch.Tensor, res: torch.Tensor,
                          gamma: torch.Tensor, beta: torch.Tensor, *,
-                         rate: float, eps: float, seed: int) -> torch.Tensor:
+                         rate: float, eps: float, seed: Seed) -> torch.Tensor:
     """``LayerNorm(dropout(x) + res) * gamma + beta`` in one pass.
 
     x, res: [..., H] (f32 or bf16, same dtype); gamma, beta: [H] f32; seed:
-    int (ignored when rate == 0).  Output dtype follows x; differentiable in
+    an int or a ``DeviceSeed`` (ignored when rate == 0).  Output dtype follows x; differentiable in
     x, res, gamma and beta."""
+    if not isinstance(seed, DeviceSeed):
+        seed = int(seed)
     return _FusedDropAddLN.apply(x, res, gamma, beta, float(rate),
-                                 float(eps), int(seed))
+                                 float(eps), seed)

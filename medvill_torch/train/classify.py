@@ -27,7 +27,10 @@ medvill_tpu/train/classify.py; reference: mmbt/main.py:93-193).
   (``eval.metrics.classification_metrics``) or argmax accuracy.  The JAX
   CLI evaluates on the dense bias; at dropout 0 both compute the same.
 
-Each step's dropout seed comes from an explicit host ``torch.Generator``.
+Each step's dropout seed comes from an explicit host ``torch.Generator``;
+``dispatch.MultiStep`` of ``make_train_step`` runs k micro-steps per
+dispatch (CUDA graphs on the card, captured again for each freeze phase;
+medvill_tpu/train/classify.py:147 ``make_multi_train_step``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from medvill_torch.ops.dropout import DropoutRNG
 from medvill_torch.ops.flash_attention import (FAMILY_PRETRAIN,
                                                make_attention_fn)
 from medvill_torch.train import optim
+from medvill_torch.train.dispatch import MicroStep
 from medvill_torch.train.losses import weighted_bce_with_logits
 from medvill_torch.train.pretrain import Batch, TrainState, to_device
 
@@ -125,27 +129,19 @@ def loss_and_logits(model: MultimodalBertClf, batch: Batch,
 
 def make_train_step(cfg: ClassificationConfig,
                     pos_weight: Optional[torch.Tensor], cls_id: int,
-                    sep_id: int
-                    ) -> Callable[[TrainState, Batch, torch.Generator],
-                                  Dict[str, torch.Tensor]]:
+                    sep_id: int) -> MicroStep:
     """Returns ``train_step(state, batch, generator) -> {"loss"}``: one
     micro-step (forward, backward, and every
     ``gradient_accumulation_steps``-th call a BertAdam update).  Each call
     draws its dropout seed from the host ``generator``.  The freeze phase
     is the model's (``apply_freeze``)."""
 
-    def train_step(state: TrainState, batch: Batch,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        seed = int(torch.randint(0, 2 ** 31, (), generator=generator))
-        loss, _ = loss_and_logits(
-            state.model, batch, DropoutRNG(seed, batch["input_txt"].device),
-            cfg, pos_weight, cls_id, sep_id)
-        loss.backward()
-        state.tx.step()
-        state.step += 1
-        return {"loss": loss.detach()}
+    def loss_fn(model, batch, rng, pix):
+        loss, _ = loss_and_logits(model, batch, rng, cfg, pos_weight, cls_id,
+                                  sep_id)
+        return loss, {"loss": loss}
 
-    return train_step
+    return MicroStep(loss_fn)
 
 
 def make_eval_step(cfg: ClassificationConfig, cls_id: int, sep_id: int

@@ -17,7 +17,10 @@ With ``use_flash_attention`` (the default) attention runs the mask-spec
 kernels K1/K2 in the seq2seq family (img_block = len_vis_input + 2);
 otherwise ``mha_reference`` on ``finetune_bias``.  ``BertConfig.fused_ln``
 selects K3/K4.  Each step's dropout seed comes from an explicit host
-``torch.Generator``.  The VQA eval runs the dense bias, as JAX does.
+``torch.Generator``; ``dispatch.MultiStep`` of ``make_train_step`` runs k
+micro-steps per dispatch (CUDA graphs on the card;
+medvill_tpu/train/finetune.py:139 ``make_multi_train_step``).  The VQA
+eval runs the dense bias, as JAX does.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from medvill_torch.ops.dropout import DropoutRNG
 from medvill_torch.ops.flash_attention import (FAMILY_SEQ2SEQ,
                                                make_attention_fn)
 from medvill_torch.train import optim
+from medvill_torch.train.dispatch import MicroStep
 from medvill_torch.train.losses import (bce_with_logits,
                                         cross_entropy_per_example,
                                         drop_worst_normalize,
@@ -109,8 +113,8 @@ def finetune_loss_and_metrics(model: VLPForPreTraining, batch: Batch,
         loss = bce_with_logits(logits, target)
         score = torch.gather(target, 1, logits.argmax(-1, keepdim=True))
         return loss, {"vqa_loss": loss, "batch_score": score.sum(),
-                      "n": torch.tensor(logits.shape[0],
-                                        device=logits.device),
+                      "n": torch.full((), logits.shape[0],
+                                      device=logits.device),
                       "loss": loss}
     logits = model(batch["image"], batch["input_ids"], batch["segment_ids"],
                    bias, masked_pos=batch["masked_pos"],
@@ -127,25 +131,13 @@ def finetune_loss_and_metrics(model: VLPForPreTraining, batch: Batch,
 
 
 def make_train_step(cfg: FinetuneConfig, drop_worst_ratio: float = 0.0
-                    ) -> Callable[[TrainState, Batch, torch.Generator],
-                                  Dict[str, torch.Tensor]]:
+                    ) -> MicroStep:
     """Returns ``train_step(state, batch, generator) -> metrics``: one
     micro-step (forward, backward, and every
     ``gradient_accumulation_steps``-th call a BertAdam update).  Each call
     draws its dropout seed from the host ``generator``."""
-
-    def train_step(state: TrainState, batch: Batch,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        seed = int(torch.randint(0, 2 ** 31, (), generator=generator))
-        loss, metrics = finetune_loss_and_metrics(
-            state.model, batch, DropoutRNG(seed, batch["input_ids"].device),
-            cfg, drop_worst_ratio)
-        loss.backward()
-        state.tx.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
-
-    return train_step
+    return MicroStep(lambda model, batch, rng, pix: finetune_loss_and_metrics(
+        model, batch, rng, cfg, drop_worst_ratio))
 
 
 def make_vqa_eval_step(cfg: FinetuneConfig

@@ -5,7 +5,10 @@ train/finetune.py:199-208).
 - ``adamw``: ``torch.optim.AdamW`` is ``optax.adamw`` here: bias-corrected
   moments, eps added outside the square root, weight decay decoupled from
   the gradient (torch scales the parameter by ``1 - lr * wd`` before the
-  Adam step; optax adds ``lr * wd * p`` to the update: the same sum).
+  Adam step; optax adds ``lr * wd * p`` to the update: the same sum).  On
+  a CUDA device it is ``capturable``: its step count lives on the device,
+  so a CUDA graph can capture its update (torch takes ``capturable`` on
+  CUDA parameters only; on the CPU it is off).
 - ``trainable``: the whole-trunk freeze (``masked_trainable`` +
   ``stop_frozen`` in JAX): frozen parameters (``requires_grad=False``) are
   not handed to the optimizer, so neither the update nor weight decay
@@ -14,7 +17,12 @@ train/finetune.py:199-208).
 - ``Accumulate``: gradient accumulation as ``optax.MultiSteps`` does it: the
   mean of ``every`` micro-batch gradients, applied once; the parameters do
   not move on the other micro-steps, and the Adam step count advances once
-  per application.
+  per application.  An application is three parts, so that a CUDA graph
+  can capture the device part alone (train/dispatch.py): ``prepare`` (the
+  host writes what the update reads: BertAdam's lr), ``apply_device``
+  (divide, update, clear the gradients) and ``finish`` (the host's
+  counters).  With ``keep_grads`` the gradients are zeroed in place, not
+  freed, so the ``.grad`` buffers keep the addresses a graph captured.
 - ``BertAdam``: the vendored BertAdam as ``make_finetune_tx`` builds it,
   applied to the accumulated mean gradient: each tensor's gradient clipped
   by ``min(1, max_grad_norm / (||g|| + 1e-6))``, Adam without bias
@@ -28,7 +36,10 @@ train/finetune.py:199-208).
   update, no decay, its moments untouched (zero while it has never
   trained), as JAX's frozen-phase step zeroes its updates.  ``plateau``
   multiplies the lr on top of the schedule (the classification CLI's
-  ``ReduceLROnPlateau`` scale, train/classify.py).
+  ``ReduceLROnPlateau`` scale, train/classify.py).  The lr reaches the
+  update as a device scalar, ``-lr * schedule * plateau``, written by
+  ``prepare`` before each update (a captured update reads the value of
+  its replay, not the one of its capture).
 - ``SCHEDULES``: ``warmup_linear`` (decays as ``max((x - 1) / (warmup -
   1), 0)``), ``warmup_constant``, ``warmup_cosine``
   (reference: sc/pytorch_pretrained_bert/optimization.py:32-44).
@@ -42,11 +53,28 @@ import torch
 from torch import nn
 
 
+class AdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` with ``Accumulate``'s three parts; all of its
+    state is on the device, so ``prepare`` and ``finish`` have nothing to
+    do."""
+
+    def prepare(self) -> None:
+        pass
+
+    def device_step(self) -> None:
+        self.step()
+
+    def finish(self) -> None:
+        pass
+
+
 def adamw(params: Iterable[nn.Parameter], lr: float, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-6,
-          weight_decay: float = 0.0) -> torch.optim.AdamW:
-    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
-                             weight_decay=weight_decay)
+          weight_decay: float = 0.0) -> AdamW:
+    params = list(params)
+    capturable = bool(params) and all(p.is_cuda for p in params)
+    return AdamW(params, lr=lr, betas=(b1, b2), eps=eps,
+                 weight_decay=weight_decay, capturable=capturable)
 
 
 def trainable(model: nn.Module) -> List[nn.Parameter]:
@@ -112,6 +140,7 @@ class BertAdam(torch.optim.Optimizer):
         self.max_grad_norm = max_grad_norm
         self.opt_step = 0
         self.plateau = 1.0
+        self._lr = None  # per group, -lr * lr_scale() on the device
 
     def lr_scale(self) -> float:
         """``schedule(opt_step / t_total, warmup) * plateau`` of the next
@@ -119,10 +148,34 @@ class BertAdam(torch.optim.Optimizer):
         return (self.schedule(self.opt_step / self.t_total, self.warmup)
                 * self.plateau)
 
-    @torch.no_grad()
-    def step(self, closure=None):
+    def prepare(self) -> None:
+        """Writes the next update's ``-lr * lr_scale()`` to the device."""
+        if self._lr is None:
+            device = self.param_groups[0]["params"][0].device
+            self._lr = [torch.zeros((), device=device)
+                        for _ in self.param_groups]
         scale = self.lr_scale()
-        for group in self.param_groups:
+        for group, lr in zip(self.param_groups, self._lr):
+            lr.fill_(-group["lr"] * scale)
+
+    def finish(self) -> None:
+        self.opt_step += 1
+
+    def step(self, closure=None):
+        self.prepare()
+        self.device_step()
+        self.finish()
+
+    @torch.no_grad()
+    def device_step(self) -> None:
+        """The update, reading only device state (capturable once the
+        moments exist).  Named as torch names an optimizer's step, so a
+        profile shows its span (tools/torch_pretrain_profile.py)."""
+        with torch.profiler.record_function("Optimizer.step#BertAdam.step"):
+            self._update()
+
+    def _update(self) -> None:
+        for group, lr in zip(self.param_groups, self._lr):
             params = [p for p in group["params"] if p.requires_grad]
             if not params:
                 continue
@@ -149,32 +202,55 @@ class BertAdam(torch.optim.Optimizer):
             if group["weight_decay"] > 0:
                 torch._foreach_add_(update, params,
                                     alpha=group["weight_decay"])
-            torch._foreach_add_(params, update, alpha=-group["lr"] * scale)
-        self.opt_step += 1
+            torch._foreach_mul_(update, lr)
+            torch._foreach_add_(params, update)
 
 
 class Accumulate:
     """Call ``step()`` after each micro-batch's ``backward()`` (which sums
     into ``.grad``).  Every ``every``-th call divides the sums by ``every``,
     steps the optimizer and clears the gradients; it returns whether it
-    applied."""
+    applied.  ``optimizer`` is a ``BertAdam`` or an ``AdamW`` of this
+    module."""
 
-    def __init__(self, optimizer: torch.optim.Optimizer, every: int):
+    def __init__(self, optimizer, every: int):
         self.optimizer = optimizer
         self.every = max(1, int(every))
         self.count = 0
+        self.keep_grads = False
+
+    def applies_next(self) -> bool:
+        """Whether the next ``step()`` applies the update."""
+        return self.count + 1 >= self.every
+
+    def prepare(self) -> None:
+        self.optimizer.prepare()
+
+    @torch.no_grad()
+    def apply_device(self) -> None:
+        grads = [p.grad for group in self.optimizer.param_groups
+                 for p in group["params"] if p.grad is not None]
+        if self.every > 1 and grads:
+            torch._foreach_div_(grads, float(self.every))
+        self.optimizer.device_step()
+        if self.keep_grads:
+            if grads:
+                torch._foreach_zero_(grads)
+        else:
+            self.optimizer.zero_grad(set_to_none=True)
+
+    def finish(self, applied: bool) -> None:
+        """The host's counters after a micro-step."""
+        if applied:
+            self.optimizer.finish()
+            self.count = 0
+        else:
+            self.count += 1
 
     def step(self) -> bool:
-        self.count += 1
-        if self.count < self.every:
-            return False
-        if self.every > 1:
-            with torch.no_grad():
-                for group in self.optimizer.param_groups:
-                    for p in group["params"]:
-                        if p.grad is not None:
-                            p.grad.div_(self.every)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
-        self.count = 0
-        return True
+        applied = self.applies_next()
+        if applied:
+            self.prepare()
+            self.apply_device()
+        self.finish(applied)
+        return applied

@@ -15,7 +15,9 @@ accuracy counts kept on the device (reference: models/train_origin.py:
   package's chunked scan, which exists only to save TPU memory.
 - ``make_train_step`` draws each step's pixel indices (a sorted
   ``randperm(M)[:N]`` shared by the batch) and its dropout seed from one
-  explicit ``torch.Generator`` on the host.
+  explicit ``torch.Generator`` on the host; ``dispatch.MultiStep`` of
+  it runs k of its micro-steps per dispatch (CUDA graphs on the card;
+  medvill_tpu/train/pretrain.py:271 ``make_multi_train_step``).
 - With ``use_flash_attention`` (the default) attention runs the mask-spec
   kernels K1/K2 (ops/flash_attention.py); otherwise ``mha_reference`` on
   the dense -10000 bias.  ``BertConfig.fused_ln`` selects K3/K4.
@@ -34,6 +36,7 @@ from medvill_torch.ops.dropout import DropoutRNG
 from medvill_torch.ops.flash_attention import (FAMILY_PRETRAIN,
                                                make_attention_fn)
 from medvill_torch.train import optim
+from medvill_torch.train.dispatch import MicroStep
 
 Batch = Dict[str, torch.Tensor]
 
@@ -147,7 +150,7 @@ def pretrain_loss_and_metrics(model: CXRBERT, batch: Batch,
         gold = torch.gather(logits, -1, labels.unsqueeze(-1)).squeeze(-1)
         loss = (logz - gold).mean()
         total = total + loss
-        n = torch.tensor(labels.shape[0], device=labels.device)
+        n = torch.full((), labels.shape[0], device=labels.device)
         metrics.update(itm_loss=loss,
                        itm_correct=(logits.argmax(-1) == labels).sum(),
                        itm_total=n)
@@ -155,33 +158,24 @@ def pretrain_loss_and_metrics(model: CXRBERT, batch: Batch,
     return total, metrics
 
 
-def make_train_step(cfg: PretrainConfig
-                    ) -> Callable[[TrainState, Batch, torch.Generator],
-                                  Dict[str, torch.Tensor]]:
+def pixel_draw(cfg) -> Optional[Callable[[torch.Generator], torch.Tensor]]:
+    """A step's pixel-index draw from the host generator (random-pixel
+    encoder), else None."""
+    if cfg.image.encoder != "random-pixel":
+        return None
+    return lambda generator: sample_pixel_indices(
+        generator, cfg.image.num_fibers, cfg.image.num_image_embeds)
+
+
+def make_train_step(cfg: PretrainConfig) -> MicroStep:
     """Returns ``train_step(state, batch, generator) -> metrics``: one
     micro-step (forward, backward, and every
     ``gradient_accumulation_steps``-th call an AdamW update).  ``generator``
     is a host ``torch.Generator``: each call draws the pixel indices
     (random-pixel encoder) and the dropout seed from it."""
-
-    def train_step(state: TrainState, batch: Batch,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        device = batch["input_txt"].device
-        pixel_indices = None
-        if cfg.image.encoder == "random-pixel":
-            pixel_indices = sample_pixel_indices(
-                generator, cfg.image.num_fibers,
-                cfg.image.num_image_embeds).to(device)
-        seed = int(torch.randint(0, 2 ** 31, (), generator=generator))
-        loss, metrics = pretrain_loss_and_metrics(
-            state.model, batch, DropoutRNG(seed, device), pixel_indices, cfg,
-            train=True)
-        loss.backward()
-        state.tx.step()
-        state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
-
-    return train_step
+    return MicroStep(
+        lambda model, batch, rng, pix: pretrain_loss_and_metrics(
+            model, batch, rng, pix, cfg, train=True), pixel_draw(cfg))
 
 
 def to_device(batch, device) -> Batch:

@@ -20,7 +20,9 @@ full_dset_retrieval.py:341-510).
 - Scoring: ``softmax(logits)[:, 1]`` in f32, deterministic, running
   BatchNorm statistics.
 - Random-pixel draws: each training step draws its pixel indices (and its
-  dropout seed) from the host ``torch.Generator`` it is given; the score
+  dropout seed) from the host ``torch.Generator`` it is given (both steps
+  also run k per dispatch, ``train/dispatch.py``, as JAX's
+  cli/retrieval_main.py:224-229 wraps its step in ``scan_micro_steps``); the score
   step uses one fixed draw from ``torch.Generator().manual_seed(0)``, where
   JAX uses ``PRNGKey(0)``.  Neither draw can match JAX's bits, as dropout
   cannot; with ``num_image_embeds == num_fibers`` both sorted draws are the
@@ -49,7 +51,8 @@ from medvill_torch.ops.dropout import DropoutRNG
 from medvill_torch.ops.flash_attention import (FAMILY_PRETRAIN,
                                                make_attention_fn)
 from medvill_torch.train import optim
-from medvill_torch.train.pretrain import (Batch, TrainState,
+from medvill_torch.train.dispatch import MicroStep
+from medvill_torch.train.pretrain import (Batch, TrainState, pixel_draw,
                                           sample_pixel_indices, to_device)
 
 
@@ -116,35 +119,13 @@ def loss_and_metrics(model: CXRBERT, batch: Batch,
     return loss, {"loss": loss, "acc": acc}
 
 
-def _step(state: TrainState, loss: torch.Tensor,
-          metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    loss.backward()
-    state.tx.step()
-    state.step += 1
-    return {k: v.detach() for k, v in metrics.items()}
-
-
-def make_train_step(cfg: RetrievalConfig
-                    ) -> Callable[[TrainState, Batch, torch.Generator],
-                                  Dict[str, torch.Tensor]]:
+def make_train_step(cfg: RetrievalConfig) -> MicroStep:
     """Returns ``train_step(state, batch, generator) -> {"loss", "acc"}``:
     one CXRBERT micro-step and its AdamW update.  Each call draws its pixel
     indices (random-pixel encoder) and its dropout seed from
     ``generator``."""
-
-    def train_step(state: TrainState, batch: Batch,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        device = batch["input_txt"].device
-        pixel_indices = None
-        if cfg.image.encoder == "random-pixel":
-            pixel_indices = sample_pixel_indices(
-                generator, cfg.image.num_fibers,
-                cfg.image.num_image_embeds).to(device)
-        seed = int(torch.randint(0, 2 ** 31, (), generator=generator))
-        return _step(state, *loss_and_metrics(
-            state.model, batch, DropoutRNG(seed, device), pixel_indices, cfg))
-
-    return train_step
+    return MicroStep(lambda model, batch, rng, pix: loss_and_metrics(
+        model, batch, rng, pix, cfg), pixel_draw(cfg))
 
 
 def score_pixel_indices(cfg: RetrievalConfig) -> Optional[torch.Tensor]:
@@ -192,21 +173,12 @@ def cnn_loss_and_metrics(model: CNNBert, batch: Batch,
     return loss, {"loss": loss, "acc": acc}
 
 
-def make_cnn_train_step(cfg: RetrievalConfig
-                        ) -> Callable[[TrainState, Batch, torch.Generator],
-                                      Dict[str, torch.Tensor]]:
+def make_cnn_train_step(cfg: RetrievalConfig) -> MicroStep:
     """The CNN_BERT branch's ``train_step(state, batch, generator)``
     (reference: full_dset_retrieval.py:38,549-555)."""
     del cfg  # the step reads nothing of it; the signature matches
-
-    def train_step(state: TrainState, batch: Batch,
-                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        seed = int(torch.randint(0, 2 ** 31, (), generator=generator))
-        return _step(state, *cnn_loss_and_metrics(
-            state.model, batch,
-            DropoutRNG(seed, batch["input_txt"].device)))
-
-    return train_step
+    return MicroStep(lambda model, batch, rng, pix: cnn_loss_and_metrics(
+        model, batch, rng))
 
 
 def make_cnn_score_step(cfg: RetrievalConfig

@@ -36,6 +36,7 @@ from medvill_torch.data import pretrain as tpre_data
 from medvill_torch.data.tokenization import BertTokenizer as TTokenizer
 from medvill_torch.eval import metrics as tmetrics
 from medvill_torch.train import classify as tclf
+from medvill_torch.train import dispatch
 from medvill_tpu.cli.classification_main import _merge_pretrained
 from medvill_tpu.core.config import (BertConfig, ClassificationConfig,
                                      ImageEncoderConfig, PretrainConfig)
@@ -209,8 +210,8 @@ def test_prefetch_loader_order_error_and_place_fn():
     assert len(out) == 5 and len(seen) == 5
     placed = list(tpre_data.dispatch_loader(
         [{"x": np.arange(3), "y": np.ones(2)}] * 2, "cpu", keys=("x",)))
-    assert [set(b) for b in placed] == [{"x"}, {"x"}]
-    assert all(isinstance(b["x"], torch.Tensor) for b in placed)
+    assert [(set(b), g) for b, g in placed] == [({"x"}, False)] * 2
+    assert all(isinstance(b["x"], torch.Tensor) for b, _ in placed)
 
 
 def test_prefetch_loader_releases_producer_on_early_exit():
@@ -291,7 +292,7 @@ def test_classification_cli_end_to_end_on_cpu(tmp_path):
     assert load_mmbt_checkpoint(model, str(run / "model.best.bin")) == []
     assert classification_main.build_parser().parse_args(
         argv[:-2]).device == "cuda"
-    for flag in ("--steps_per_dispatch", "--model_parallel"):
+    for flag in ("--model_parallel",):
         with pytest.raises(SystemExit):
             classification_main.build_parser().parse_args(argv + [flag, "1"])
     with pytest.raises(FileNotFoundError):
@@ -313,7 +314,7 @@ def test_classification_cli_freeze_all_and_task_type():
     from medvill_tpu.cli.classification_main import build_parser
     jargs = vars(build_parser().parse_args(argv))
     targs = vars(classification_main.build_parser().parse_args(argv))
-    unported = {"steps_per_dispatch", "model_parallel", "zero1"}
+    unported = {"model_parallel", "zero1"}
     assert {k: v for k, v in jargs.items() if k not in unported} == \
         {k: v for k, v in targs.items() if k != "device"}
 
@@ -324,25 +325,17 @@ def _record_batches(monkeypatch, module, serial: bool) -> list:
     seen = []
     if serial:
         monkeypatch.setattr(module, "dispatch_loader", lambda loader, device,
-                            keys=None: ({k: torch.as_tensor(v) for k, v in
-                                         b.items() if keys is None
-                                         or k in keys} for b in loader))
-    make = module.make_train_step if module is pretrain_main else \
-        module.ft.make_train_step
+                            keys=None, k=1: (({n: torch.as_tensor(v) for n, v
+                                               in b.items() if keys is None
+                                               or n in keys}, False)
+                                             for b in loader))
+    step = dispatch.MicroStep.__call__
 
-    def wrap(*a, **k):
-        step = make(*a, **k)
+    def recorded(self, state, batch, generator):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return step(self, state, batch, generator)
 
-        def recorded(state, batch, generator):
-            seen.append({k: v.clone() for k, v in batch.items()})
-            return step(state, batch, generator)
-
-        return recorded
-
-    if module is pretrain_main:
-        monkeypatch.setattr(module, "make_train_step", wrap)
-    else:
-        monkeypatch.setattr(module.ft, "make_train_step", wrap)
+    monkeypatch.setattr(dispatch.MicroStep, "__call__", recorded)
     return seen
 
 

@@ -675,10 +675,14 @@ def test_dispatch_loader_on_card(cuda_device):
     batches = [{"x": np.full((4, 3), i, np.int32),
                 "y": np.arange(6, dtype=np.float32) * i} for i in range(6)]
     out = list(dispatch_loader(batches, cuda_device, keys=("x",)))
-    assert len(out) == 6
-    for i, b in enumerate(out):
+    assert len(out) == 6 and not any(g for _, g in out)
+    for i, (b, _) in enumerate(out):
         assert set(b) == {"x"} and b["x"].device.type == "cuda"
         assert torch.equal(b["x"].cpu(), torch.from_numpy(batches[i]["x"]))
+    groups = list(dispatch_loader(batches[:5], cuda_device, k=2))
+    assert [g for _, g in groups] == [True, True, False]
+    assert torch.equal(groups[1][0]["y"].cpu(), torch.from_numpy(
+        np.stack([batches[2]["y"], batches[3]["y"]])))
     before = threading.active_count()
     it = iter(dispatch_loader(batches * 20, cuda_device))
     next(it)
@@ -688,3 +692,219 @@ def test_dispatch_loader_on_card(cuda_device):
             break
         threading.Event().wait(0.05)
     assert threading.active_count() <= before
+
+
+# --- k micro-steps per dispatch: device seeds and CUDA graphs -----------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_from_a_device_seed_equal_the_host_seed(cuda_device, dtype):
+    """K1-K4 at rate 0.1 launched with the seed s as a host int and as a
+    device word holding s - add with the call constant add: bit-identical
+    outputs."""
+    from medvill_torch.ops.dropout import GOLDEN, DeviceSeed
+
+    s, add = 0x5EED1234, (7 * GOLDEN) & 0xFFFFFFFF
+    base = np.array([(s - add) & 0xFFFFFFFF], np.uint32).view(np.int32)
+    dev = DeviceSeed(torch.from_numpy(base).to(cuda_device), add)
+    q, k, v, do = _attn_inputs(cuda_device, 2, 150, 12, dtype, 3)
+    spec = torch.tensor([[0, 100], [2, 120]], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(img_block=6, l_real=150, family=tfa.FAMILY_PRETRAIN, rate=0.1)
+    o1, lse1 = tfa.attn_fwd(q, k, v, spec, seed=s, **kw)
+    o2, lse2 = tfa.attn_fwd(q, k, v, spec, seed=dev, **kw)
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+    for a, b in zip(tfa.attn_bwd(q, k, v, o1, do, lse1, spec, seed=s, **kw),
+                    tfa.attn_bwd(q, k, v, o1, do, lse1, spec, seed=dev,
+                                 **kw)):
+        assert torch.equal(a, b)
+    x, res, gamma, beta, dy = _ln_bwd_inputs(cuda_device, 2064, 768, dtype, 4)
+    lk = dict(rate=0.1, eps=1e-5)
+    assert torch.equal(tfl.fused_ln_fwd(x, res, gamma, beta, seed=s, **lk),
+                       tfl.fused_ln_fwd(x, res, gamma, beta, seed=dev, **lk))
+    for a, b in zip(tfl.fused_ln_bwd(x, res, gamma, dy, seed=s, **lk),
+                    tfl.fused_ln_bwd(x, res, gamma, dy, seed=dev, **lk)):
+        assert torch.equal(a, b)
+
+
+def _tiny_finetune(rate):
+    from medvill_torch.config import FinetuneConfig
+
+    bert = dataclasses.replace(
+        BertConfig.vlp(BertConfig(vocab_size=64, hidden_size=128,
+                                  num_hidden_layers=2, num_attention_heads=2,
+                                  intermediate_size=256,
+                                  hidden_dropout_prob=rate,
+                                  attention_probs_dropout_prob=rate,
+                                  compute_dtype="float32")), fused_ln=True)
+    return FinetuneConfig(bert=bert, image=ImageEncoderConfig(
+        img_size=64, num_image_embeds=4, encoder="full-fiber"),
+        len_vis_input=4, max_seq_length=24, max_pred=3, img_size=64)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_captured_finetune_micro_steps_equal_eager(cuda_device, rate):
+    """A 2-layer report-generation model (fused_ln, f32): two dispatches of
+    k = 3 (CUDA graphs: the first micro-step eager, then the captured one
+    replayed) against 6 eager micro-steps from the same weights, batches
+    and seeds: losses, parameters and BatchNorm statistics within 1e-5 of
+    their scale (bit-identical expected), 2/2/4/4 K1-K4 launches per
+    micro-step on both paths (replays counted)."""
+    from medvill_torch.train import dispatch
+    from medvill_torch.train import finetune as tft
+
+    cfg = _tiny_finetune(rate)
+    batches = [_finetune_batch(cuda_device, cfg, i) for i in range(6)]
+    runs = {}
+    for path in ("eager", "graphed"):
+        state = tft.init_state(cfg, t_total=10, seed=0, device=cuda_device)
+        gen = torch.Generator().manual_seed(1)
+        before = [f.launches for f in dispatch.COUNTED]
+        if path == "eager":
+            step = tft.make_train_step(cfg)
+            losses = torch.stack([step(state, b, gen)["loss"]
+                                  for b in batches])
+        else:
+            multi = dispatch.MultiStep(tft.make_train_step(cfg), 3)
+            losses = torch.cat([multi(state, {
+                k: torch.stack([b[k] for b in batches[i:i + 3]])
+                for k in batches[0]}, gen)["loss"] for i in (0, 3)])
+        launches = [f.launches - b for f, b in zip(dispatch.COUNTED, before)]
+        assert launches == [12, 12, 24, 24], (path, launches)
+        assert state.step == 6 and state.tx.optimizer.opt_step == 6
+        runs[path] = (losses, state.model.state_dict())
+    (le, sde), (lg, sdg) = runs["eager"], runs["graphed"]
+    torch.testing.assert_close(lg, le, rtol=1e-5, atol=0)
+    for name, t in sde.items():
+        if t.is_floating_point():
+            torch.testing.assert_close(
+                sdg[name], t, rtol=0, atol=1e-5 * t.abs().max().item(),
+                msg=name)
+    if rate > 0:
+        assert len(set(lg.tolist())) == 6
+
+
+def _tiny_pretrain():
+    from medvill_torch.config import PretrainConfig
+
+    bert = dataclasses.replace(
+        BertConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2,
+                   num_attention_heads=2, intermediate_size=256,
+                   hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                   compute_dtype="float32"), fused_ln=True)
+    return PretrainConfig(seq_len=15, bert=bert, batch_size=2,
+                          gradient_accumulation_steps=2, lr=1e-3,
+                          image=ImageEncoderConfig(
+                              img_size=128, num_image_embeds=4,
+                              img_hidden_size=64, encoder="random-pixel"))
+
+
+def _pretrain_batch(device, cfg, seed):
+    """A BAR batch of ``cfg``'s shapes, its tokens and labels drawn from
+    ``seed``."""
+    from medvill_torch.config import MaskVariant
+
+    rng = np.random.default_rng(seed)
+    B, S, I = cfg.batch_size, cfg.seq_len + 1, cfg.image.num_image_embeds + 2
+    lens = rng.integers(3, S + 1, B)
+    ids = rng.integers(5, 64, (B, S)) * (np.arange(S) < lens[:, None])
+    labels = np.where((rng.random((B, S)) < 0.3)
+                      & (np.arange(S) < lens[:, None] - 1), ids, -100)
+    batch = dict(
+        cls_tok=np.full((B, 1), 2), input_txt=ids,
+        txt_labels=np.concatenate([np.full((B, I), -100), labels], 1),
+        mask_spec=np.stack([np.full(B, int(MaskVariant.BAR)), lens], 1),
+        image=rng.integers(0, 256, (B, 128, 128, 3), dtype=np.uint8),
+        segment=np.ones((B, S)), is_aligned=rng.integers(0, 2, B),
+        sep_tok=np.full((B, 1), 3))
+    return {k: torch.from_numpy(np.asarray(v)).to(device).to(
+        torch.uint8 if k == "image" else torch.int32)
+        for k, v in batch.items()}
+
+
+def test_graphed_pixel_draws_wait_for_their_copy(cuda_device, monkeypatch):
+    """The random-pixel draws of a graphed dispatch reach the card on the
+    stream that reads them: with every pinned copy held behind ~0.1 s of
+    work on the stream that was current when it was queued, three
+    dispatches of k = 2 (a 2-layer pretrain model, f32, 16 fibers, 4
+    drawn) still equal six eager micro-steps from the same weights,
+    batches and draws: losses, parameters and BatchNorm statistics within
+    1e-5 of their scale (bit-identical expected)."""
+    from medvill_torch.train import dispatch
+    from medvill_torch.train import pretrain as tpre
+
+    cfg = _tiny_pretrain()
+    batches = [_pretrain_batch(cuda_device, cfg, i) for i in range(6)]
+    runs = {}
+    for path in ("eager", "graphed"):
+        state = tpre.init_state(cfg, seed=0, device=cuda_device)
+        gen = torch.Generator().manual_seed(1)
+        if path == "eager":
+            step = tpre.make_train_step(cfg)
+            losses = torch.stack([step(state, b, gen)["loss"]
+                                  for b in batches])
+        else:
+            pin = torch.Tensor.pin_memory
+
+            def slow_pin(t, *a, **kw):
+                torch.cuda._sleep(2 ** 27)
+                return pin(t, *a, **kw)
+
+            monkeypatch.setattr(torch.Tensor, "pin_memory", slow_pin)
+            multi = dispatch.MultiStep(tpre.make_train_step(cfg), 2)
+            losses = torch.cat([multi(state, {
+                k: torch.stack([b[k] for b in batches[i:i + 2]])
+                for k in batches[0]}, gen)["loss"] for i in (0, 2, 4)])
+            monkeypatch.undo()
+        torch.cuda.synchronize()
+        runs[path] = (losses, state.model.state_dict())
+    (le, sde), (lg, sdg) = runs["eager"], runs["graphed"]
+    torch.testing.assert_close(lg, le, rtol=1e-5, atol=0)
+    for name, t in sde.items():
+        if t.is_floating_point():
+            torch.testing.assert_close(
+                sdg[name], t, rtol=0, atol=1e-5 * t.abs().max().item(),
+                msg=name)
+
+
+def test_graphs_refuse_cpu_tensors(cuda_device):
+    """The graphed path takes CUDA tensors only: a CPU group there raises
+    (a CPU dispatch runs eagerly instead)."""
+    from medvill_torch.train import dispatch
+    from medvill_torch.train import finetune as tft
+
+    cfg = _tiny_finetune(0.0)
+    state = tft.init_state(cfg, t_total=10, seed=0, device="cpu")
+    group = {k: v.cpu()[None] for k, v in
+             _finetune_batch(cuda_device, cfg, 0).items()}
+    multi = dispatch.MultiStep(tft.make_train_step(cfg), 1)
+    with pytest.raises((ValueError, RuntimeError)):
+        multi._replayed(state, group, [multi.micro.draw(
+            torch.Generator().manual_seed(0))], torch.device("cpu"))
+
+
+def test_capturable_adamw_matches_the_adamw_formula(cuda_device):
+    """The port's AdamW on CUDA parameters (capturable: its step count on
+    the device) over 3 steps, lr 1e-3, weight decay 0.01, against optax's
+    adamw written out in float64 numpy (bias-corrected moments, eps outside
+    the square root, decay added to the update): within 1e-6."""
+    from medvill_torch.train.optim import adamw
+
+    gen = torch.Generator().manual_seed(0)
+    p0 = torch.randn(64, 32, generator=gen)
+    grads = [torch.randn(64, 32, generator=gen) for _ in range(3)]
+    p = torch.nn.Parameter(p0.clone().to(cuda_device))
+    opt = adamw([p], 1e-3, weight_decay=0.01)
+    assert opt.param_groups[0]["capturable"]
+    for g in grads:
+        p.grad = g.to(cuda_device)
+        opt.step()
+    assert opt.state[p]["step"].is_cuda
+    w, m, v = p0.double().numpy(), 0.0, 0.0
+    for t, g in enumerate(grads, 1):
+        g = g.double().numpy()
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        u = (m / (1 - 0.9 ** t)) / (np.sqrt(v / (1 - 0.999 ** t)) + 1e-6)
+        w = w - 1e-3 * (u + 0.01 * w)
+    np.testing.assert_allclose(p.detach().cpu().double().numpy(), w,
+                               rtol=0, atol=1e-6)

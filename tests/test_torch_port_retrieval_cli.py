@@ -107,12 +107,12 @@ def test_both_clis_train_one_epoch(syn, tmp_path):
                                    str(tout / "model.0.bin")) == []
     assert retrieval_main.build_parser().parse_args(
         argv[:-2]).device == "cuda"
-    for flag in ("--steps_per_dispatch", "--model_parallel", "--zero1"):
+    for flag in ("--model_parallel", "--zero1"):
         with pytest.raises(SystemExit):
             retrieval_main.build_parser().parse_args(argv + [flag, "2"])
     jargs = vars(jax_retrieval_main.build_parser().parse_args(argv[:-2]))
     targs = vars(retrieval_main.build_parser().parse_args(argv[:-2]))
-    for k in ("steps_per_dispatch", "model_parallel", "zero1"):
+    for k in ("model_parallel", "zero1"):
         del jargs[k]
     assert jargs == {k: v for k, v in targs.items() if k != "device"}
 

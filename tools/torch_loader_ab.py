@@ -55,11 +55,13 @@ CLIS = {"pretrain": (pretrain_main, "pairs_per_s"),
         "classify": (classification_main, "examples_per_s")}
 
 
-def serial_loader(loader, device, keys=None):
-    """The serial pipeline: fetch, then copy from pageable memory."""
+def serial_loader(loader, device, keys=None, k=1):
+    """The serial pipeline: fetch, then copy from pageable memory (one
+    batch per step: the CLIs run at their default --steps_per_dispatch)."""
+    assert k == 1, "the serial pipeline groups no batches"
     for batch in loader:
-        yield {k: torch.as_tensor(v).to(device, non_blocking=True)
-               for k, v in batch.items() if keys is None or k in keys}
+        yield {n: torch.as_tensor(v).to(device, non_blocking=True)
+               for n, v in batch.items() if keys is None or n in keys}, False
 
 
 def argv_for(cli: str, d: str, vocab: str, data: dict, run: int) -> list:

@@ -4,7 +4,7 @@ classification or image-text retrieval.
 
     python tools/torch_pretrain_profile.py \
         [--mode finetune|classify|retrieve] [--fused_ln] [--steps 8] \
-        [--table out/torch_pretrain_profile.txt]
+        [--steps_per_dispatch 4] [--table out/torch_pretrain_profile.txt]
 
 ``--mode pretrain``: the configuration of chip_smoke.py's ``train`` phase:
 PretrainConfig defaults (BERT-base, ResNet-50 random-pixel encoder at 512 px
@@ -30,9 +30,13 @@ chip_smoke.py's synthetic vocabulary and records (288 records over 8 shared
   (one thread, both rows of each pair), alone;
 - step: the host-clock time per micro-step of the train step on one
   device-resident batch, ``--steps`` micro-steps after two of warmup,
-  ending in a sync;
+  ending in a sync; with ``--steps_per_dispatch k`` > 1, ``--steps / k``
+  dispatches of k micro-steps (CUDA graphs of the micro-step,
+  medvill_torch/train/dispatch.py) over the batch stacked k times, after
+  enough warmup dispatches to capture both graphs;
 - profile: ``--steps`` micro-steps under torch.profiler: device busy time,
-  idle share (1 - busy / traced wall), kernel launches per micro-step, the
+  idle share (1 - busy / traced wall), host launches per micro-step
+  (kernel launches, a CUDA graph launch counted once), the
   device time by kind (K1, K2, K3, K4, GEMM, convolution, optimizer
   (multi-tensor kernels), elementwise/reduction, other), the span of the
   optimizer's step on the device timeline (its ``Optimizer.step`` range
@@ -70,6 +74,7 @@ from medvill_torch.train import classify  # noqa: E402
 from medvill_torch.train import finetune as finetune_lib  # noqa: E402
 from medvill_torch.train import pretrain as pretrain_lib  # noqa: E402
 from medvill_torch.train import retrieve  # noqa: E402
+from medvill_torch.train.dispatch import MultiStep  # noqa: E402
 
 # the device-timeline spans of record_function ranges, left out of the
 # kernel sums
@@ -160,6 +165,9 @@ def main() -> int:
                     help="BertConfig.fused_ln on (K3/K4)")
     ap.add_argument("--steps", type=int, default=8,
                     help="micro-steps timed and traced")
+    ap.add_argument("--steps_per_dispatch", type=int, default=1,
+                    help="k micro-steps per dispatch, replayed as CUDA "
+                         "graphs; --steps is rounded up to a multiple")
     ap.add_argument("--table", type=str, default=None,
                     help="file for the full torch.profiler operator table")
     args = ap.parse_args()
@@ -199,17 +207,33 @@ def main() -> int:
 
     batch = pretrain_lib.to_device(batches[0], device)
     gen = torch.Generator().manual_seed(0)
+    spd = max(1, args.steps_per_dispatch)
+    args.steps = -(-args.steps // spd) * spd
+    if spd > 1:
+        multi = MultiStep(step, spd)
+        group = {n: torch.stack([t] * spd) for n, t in batch.items()}
+
+        def run(n):
+            for _ in range(n // spd):
+                multi(state, group, gen)
+        # two dispatches past the first of each kind (eager), so that both
+        # graphs are captured before the timed window
+        every = state.tx.every
+        warmup = -(-2 * max(spd, every) // spd) * spd
+    else:
+        def run(n):
+            for _ in range(n):
+                step(state, batch, gen)
+        warmup = 2
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        step(state, batch, gen)
+    run(warmup)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
-        step(state, batch, gen)
+    run(args.steps)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
     print(json.dumps({"what": "step", "mode": args.mode,
-                      "fused_ln": args.fused_ln,
+                      "fused_ln": args.fused_ln, "steps_per_dispatch": spd,
                       "micro_steps": args.steps, "ms_per_micro_step": step_ms,
                       f"{unit}_per_s": batch_size / step_ms * 1e3,
                       "peak_mem_gib": torch.cuda.max_memory_allocated()
@@ -220,8 +244,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step(state, batch, gen)
+        run(args.steps)
         torch.cuda.synchronize()
         traced = time.perf_counter() - t0
     avgs = prof.key_averages()
@@ -244,15 +267,16 @@ def main() -> int:
         by_kind[k] = by_kind.get(k, 0.0) + dev_us(e)
     launches = sum(e.count for e in avgs
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
+                                "cudaLaunchKernelExC", "cudaGraphLaunch"))
     top_dev = sorted(dev, key=lambda e: -dev_us(e))[:15]
     print(json.dumps({
         "what": "profile", "mode": args.mode, "fused_ln": args.fused_ln,
+        "steps_per_dispatch": spd,
         "micro_steps": args.steps, "traced_wall_s": traced,
         "ms_per_micro_step": traced / args.steps * 1e3,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / traced,
-        "kernel_launches_per_micro_step": launches / args.steps,
+        "host_launches_per_micro_step": launches / args.steps,
         "optimizer_step_span_ms_per_micro_step":
             optimizer_span_us / 1e3 / args.steps,
         "device_ms_per_micro_step_by_kind": {
