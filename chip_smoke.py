@@ -185,10 +185,36 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    (ratio 0, then 0.2: new graphs): the peak reserved within 1 GiB of a
    one-epoch k = 4 run's (the first ratio's graphs are let go).
 
+20. resume: the pretrain CLI at its defaults (BERT-base, 180 random-pixel
+   fibers at 512 px, L = 436, BAR, batch 36, accumulation 4) for 2 epochs
+   of the train phase's 8 batches at --steps_per_dispatch 2, with
+   --test_dataset (36 records), --watch_interval 1, --profile_dir and
+   --log_freq 1, under PyTorch's deterministic algorithms: a real SIGTERM,
+   sent when dispatch 1 of epoch 0 is logged, stops it after dispatch 2
+   with 2 of 4 micro-batches accumulated (marker 0 / 6); the same argv
+   relaunched consumes the marker, and its model.1.bin and optim.1.bin
+   equal an uninterrupted run's bit for bit, its eval rows too; K1 runs
+   12 times per eval batch; the eval loss on the final weights within
+   train-parity's bf16 rules of the plain path (f32 the yardstick); the
+   profile holds the attention kernels; K1 at the eval call checked
+   against its plain version and timed; the sizes of the optim files, the
+   seconds per save, the eval's ms per batch, the fresh and the relaunched
+   run's seconds to their first dispatch.
+21. resume-ft: the finetune CLI at its defaults with {"fused_ln": true}
+   and --steps_per_dispatch 4 for 2 epochs: a SIGTERM as epoch 0's first
+   group is handed out stops it after that dispatch (marker 0 / 4); the
+   relaunch re-enters epoch 0 at batch 4 and ends bit-equal to an
+   uninterrupted run; one more relaunch resumes by scan at epoch 2, past
+   the last epoch.
+22. preempt-clf: the classification CLI at its defaults (batch 56, the
+   trunk trained): a SIGTERM as the first batch is handed out is read
+   after that batch (within preempt.POLL_EVERY), model.0.bin is written
+   and holds the in-memory weights.
+
 Then the line of kernels (each with its launches by path and, beside the
 training shape's figures, its figures at the finetune shape and K1/K2's at
-the classification and retrieval shapes, K1's at the scoring call), and
-last
+the classification and retrieval shapes, K1's at the scoring and the eval
+calls), and last
 {"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
@@ -201,6 +227,8 @@ import json
 import logging
 import os
 import random
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -245,6 +273,7 @@ from medvill_torch.train import classify
 from medvill_torch.train import finetune as finetune_lib
 from medvill_torch.train import pretrain as pretrain_lib
 from medvill_torch.train import retrieve as retrieve_lib
+from medvill_torch.utils import preempt
 
 # cuBLAS's deterministic workspace setting (8 x 4 MiB, PyTorch's default
 # size on Hopper), read at the first GEMM: graph-steps compares under
@@ -2936,6 +2965,392 @@ def phase_graph_steps(ft_argv: list, data: str, vocab: str, clf_data: str,
     return k4_counts
 
 
+
+class _LogWatch(logging.Handler):
+    """Reads the training CLIs' log from the root logger: the time of the
+    first "epoch E it I" line (its loss is read from the device, so the
+    first dispatch has ended), each "saved ... in S s", and, when a line
+    starts with ``signal_at``, a SIGTERM to this process."""
+
+    def __init__(self, signal_at: str = None):
+        super().__init__()
+        self.signal_at, self.sent = signal_at, False
+        self.first_step = None
+        self.save_s: list = []
+
+    def emit(self, record) -> None:
+        msg = record.getMessage()
+        if self.first_step is None and msg.startswith("epoch ") \
+                and " it " in msg:
+            self.first_step = time.perf_counter()
+        m = re.fullmatch(r"saved .* in ([0-9.]+) s", msg)
+        if m:
+            self.save_s.append(float(m.group(1)))
+        if self.signal_at and not self.sent \
+                and msg.startswith(self.signal_at + " "):
+            self.sent = True
+            os.kill(os.getpid(), signal.SIGTERM)
+
+
+def _run_cli(main_fn, argv: list, signal_at: str = None) -> tuple:
+    """(result, seconds to the first logged dispatch, the logged save
+    seconds) of ``main_fn(argv)``, a SIGTERM sent at ``signal_at``."""
+    watch = _LogWatch(signal_at)
+    logging.getLogger().addHandler(watch)
+    t0 = time.perf_counter()
+    try:
+        out = main_fn(argv)
+    finally:
+        logging.getLogger().removeHandler(watch)
+    check(signal_at is None or watch.sent, f"no log line {signal_at!r}")
+    startup = None if watch.first_step is None else watch.first_step - t0
+    return out, startup, watch.save_s
+
+
+class _SignalAtBatch:
+    """Wraps a CLI's ``dispatch_loader``: a SIGTERM to this process when the
+    ``at``-th item of the first epoch is handed out; counts the items handed
+    out from then on."""
+
+    def __init__(self, module, at: int = 0):
+        self.module, self.at = module, at
+        self.real = module.dispatch_loader
+        self.after = 0
+
+    def __enter__(self):
+        def wrapped(*a, **kw):
+            for i, item in enumerate(self.real(*a, **kw)):
+                if i == self.at and not self.after:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                if i >= self.at:
+                    self.after += 1
+                yield item
+
+        self.module.dispatch_loader = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.dispatch_loader = self.real
+        return False
+
+
+def _same_files(got: str, want: str, names) -> None:
+    """Each named checkpoint file of ``got`` equals ``want``'s, tensor by
+    tensor bit for bit, every other value equal."""
+    def flat(x, where=""):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                yield from flat(v, f"{where}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                yield from flat(v, f"{where}/{i}")
+        else:
+            yield where, x
+
+    for name in names:
+        a, b = (dict(flat(torch.load(os.path.join(d, name),
+                                     map_location="cpu", weights_only=True,
+                                     mmap=True))) for d in (got, want))
+        check(a.keys() == b.keys(), f"{name}: other entries")
+        for k, x in a.items():
+            same = (torch.equal(x, b[k]) if torch.is_tensor(x)
+                    else x == b[k])
+            check(same, f"{name}{k} differs from the uninterrupted run's")
+
+
+def _eval_parity(run: str, test_data: str, vocab: str, device) -> dict:
+    """The eval's loss on one test batch from the run's final weights: the
+    kernel path (make_eval_step, bf16 compute, K1) against the plain path
+    (the attention kernels' plain version, bf16), held as train-parity
+    holds a loss (_check_parity_legs' rules (1) and (2)) with the plain
+    path in f32 (TF32 off) as the yardstick; then K1 at the eval's call
+    (B 36, the batch's BAR spec, rate 0, bf16) against its plain version
+    and timed beside its bound, plain version and the library, and the
+    eval step's ms per batch (CUDA events, back to back) and its device
+    busy ms and idle share (torch.profiler, _busy)."""
+    args = pretrain_main.build_parser().parse_args(
+        ["--train_dataset", test_data, "--vocab_file", vocab])
+    cfg = pretrain_main.config_from_args(args)
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    ds = CXRPretrainDataset(test_data, tok, cfg, seed=cfg.seed + 1)
+    batch = pretrain_lib.to_device(next(iter(BatchLoader(
+        ds, PRE_B, shuffle=False))), device)
+    pix = pretrain_lib.eval_pixel_indices(cfg).to(device)
+    losses, terms = {}, {}
+    for dt in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, bert=dataclasses.replace(
+            cfg.bert, compute_dtype=dt))
+        model = pretrain_lib.build_model(c)
+        load_cxrbert_checkpoint(model, os.path.join(run, "model.1.bin"))
+        model.to(device)
+        paths = ("kernel", "plain") if dt == "bfloat16" else ("plain",)
+        for path in paths:
+            attention_fn = None if path == "kernel" else _plain_attention(
+                batch["mask_spec"], PRE_IMG_BLOCK, fa.FAMILY_PRETRAIN, 0.0)
+            reset_counts()
+            with torch.no_grad(), _loss_terms(
+                    model, batch, (pretrain_lib, "_mlm_ce")) as t:
+                if path == "kernel":
+                    m = pretrain_lib.make_eval_step(c)(model, batch)
+                else:
+                    m = pretrain_lib.pretrain_loss_and_metrics(
+                        model, batch, None, pix, c, train=False,
+                        attention_fn=attention_fn)[1]
+            counts = read_counts()
+            want = 12 if path == "kernel" else 0
+            check(counts == {"K1": want, "K2": 0, "K3": 0, "K4": 0},
+                  f"eval {dt} {path} launches {counts}")
+            losses[f"{path}_{dt}"] = m["loss"].item()
+            terms[f"{path}_{dt}"] = torch.cat(t)
+        if dt == "bfloat16":
+            step = pretrain_lib.make_eval_step(c)
+            eval_ms = eager_ms(lambda: step(model, batch), iters=10,
+                               warmup=2)
+            _, busy_ms, idle, _ = _busy(lambda: step(model, batch), 1)
+        del model
+    k, p, f = (losses[n] for n in ("kernel_bfloat16", "plain_bfloat16",
+                                   "plain_float32"))
+
+    def rms(a, b) -> float:
+        return (a - b).square().mean().sqrt().item()
+
+    floor_terms = rms(terms["plain_bfloat16"], terms["plain_float32"])
+    dist = rms(terms["kernel_bfloat16"], terms["plain_bfloat16"])
+    check(dist <= 2.0 * floor_terms, f"eval loss terms: rms {dist} > 2 x "
+                                     f"the plain bf16-vs-f32 {floor_terms}")
+    rel, floor = abs(k - p) / abs(p), abs(p - f) / abs(f)
+    limit = max(2.0 * floor, 3.0 * floor_terms
+                / terms["plain_bfloat16"].numel() ** 0.5 / abs(p))
+    check(np.isfinite(k) and rel <= limit,
+          f"eval loss {k} vs plain {p}: relative {rel} > {limit}")
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    q, kk, v, do = (torch.randn(PRE_B, PRE_L, HEADS, HEAD_DIM, device=device,
+                                generator=gen).to(torch.bfloat16)
+                    for _ in range(4))
+    spec = batch["mask_spec"].contiguous()
+    kw = dict(img_block=PRE_IMG_BLOCK, l_real=PRE_L,
+              family=fa.FAMILY_PRETRAIN, rate=0.0, seed=0)
+    err = _attn_errs(q, kk, v, do, spec, kw, "eval call")[0]["o"]
+    t = _attn_times(q, kk, v, do, spec, kw, backward=False)
+    return {"losses": losses, "loss_rel_err": rel, "loss_rel_limit": limit,
+            "loss_terms": int(terms["plain_bfloat16"].numel()),
+            "loss_terms_rms_dist": dist,
+            "loss_terms_rms_limit": 2.0 * floor_terms,
+            "eval_ms_per_batch": eval_ms, "eval_device_busy_ms": busy_ms,
+            "eval_device_idle_share": idle,
+            "k1": {"max_abs_err": err, "ms": t["k1_ms"],
+                   "plain_ms": t["k1_plain_ms"],
+                   "bound_ms": t["k1_bound_ms"],
+                   "bound_by": t["k1_bound_by"],
+                   "library_ms": t["k1_library_ms"]}}
+
+
+RESUME_EPOCHS, RESUME_K = 2, 2
+# the log line of dispatch 1 of epoch 0 at k = 2: the guard reads the flag
+# after dispatch 2, 6 micro-steps in, 2 into the accumulation of 4
+RESUME_SIGNAL = "epoch 0 it 2"
+
+
+def phase_resume(d: str, data: str, vocab: str, device) -> tuple:
+    """The pretrain CLI at its defaults (BERT-base, 180 random-pixel fibers
+    at 512 px, L = 436, BAR, batch 36, accumulation 4) for 2 epochs of 8
+    batches over the train phase's records at --steps_per_dispatch 2, with
+    --test_dataset (its first 36 records), --watch_interval 1,
+    --profile_dir, --log_freq 1 and --save_interval 2 (a full save writes
+    ~1.5 GB: fewer saves keep the script's disk writes down; the relaunch
+    still saves the epoch it resumed), under PyTorch's deterministic
+    algorithms: a real SIGTERM sent when dispatch 1 of epoch 0 is logged
+    stops it mid-accumulation (marker 0 / 6, 2 micro-batches summed); the
+    same argv relaunched consumes the marker and ends with model.1.bin and
+    optim.1.bin equal bit for bit to an uninterrupted run's, and the same
+    eval rows; K1 runs 12 times per eval batch; the eval loss within the
+    bf16 tolerance of the plain path (_eval_parity); the profile holds the
+    attention kernels.  Returns (the relaunch's launches, K1's figures at
+    the eval call)."""
+    t_phase = time.perf_counter()
+    test_data = os.path.join(d, "resume_test.jsonl")
+    with open(data) as f, open(test_data, "w") as g:
+        g.writelines(line for _, line in zip(range(PRE_B), f))
+    runs = {n: os.path.join(d, f"resume_{n}") for n in ("run", "twin")}
+
+    def argv(out, *extra):
+        return ["--train_dataset", data, "--vocab_file", vocab,
+                "--output_path", out, "--epochs", str(RESUME_EPOCHS),
+                "--device", "cuda", "--steps_per_dispatch", str(RESUME_K),
+                "--test_dataset", test_data, "--watch_interval", "1",
+                "--log_freq", "1", "--save_interval", str(RESUME_EPOCHS),
+                *extra]
+
+    run_argv = argv(runs["run"], "--profile_dir",
+                    os.path.join(runs["run"], "profile"))
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first, fresh_startup, saves = _run_cli(pretrain_main.main, run_argv,
+                                               RESUME_SIGNAL)
+        marker = preempt.read_marker(runs["run"])
+        check(first == [] and marker == {"epoch": 0, "batches_done": 6},
+              f"preempted run: rows {first}, marker {marker}")
+        mid = torch.load(os.path.join(runs["run"], "optim.0.bin"),
+                         map_location="cpu", weights_only=True, mmap=True)
+        check(mid["tx"]["count"] == 2 and mid["loader"]["epoch"] == 0,
+              f"mid-epoch state: count {mid['tx']['count']}, loader "
+              f"{mid['loader']['epoch']}")
+        del mid
+        mid_bytes = os.path.getsize(os.path.join(runs["run"], "optim.0.bin"))
+        reset_counts()
+        rows, startup, more = _run_cli(pretrain_main.main, run_argv)
+        counts = read_counts()
+        saves += more
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        twin, _, more = _run_cli(pretrain_main.main, argv(runs["twin"]))
+        saves += more
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    check(preempt.read_marker(runs["run"]) is None, "marker not consumed")
+    check([(r["epoch"], r["micro_steps"]) for r in rows]
+          == [(0, 2), (1, 8)], f"relaunch rows {rows}")
+    _same_files(runs["run"], runs["twin"], ("model.1.bin", "optim.1.bin"))
+    evals = [{k: v for k, v in r.items() if k.startswith("eval_avg")}
+             for r in rows]
+    check(evals == [{k: v for k, v in r.items() if k.startswith("eval_avg")}
+                    for r in twin], "eval rows differ from the twin's")
+    micro = 2 + 8
+    want = {"K1": 12 * micro + 12 * RESUME_EPOCHS, "K2": 12 * micro,
+            "K3": 0, "K4": 0}
+    check(counts == want and all(r["eval_batches"] == 1 for r in rows),
+          f"relaunch launches {counts} != {want}")
+    with open(os.path.join(runs["run"], "profile",
+                           pretrain_main.TRACE_FILE)) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kernels = sorted(n for n in names if "attn_" in n and "kernel" in n)
+    check(any("attn_fwd" in n for n in kernels)
+          and any("attn_bwd" in n for n in kernels),
+          f"the trace holds no attention kernels: {kernels}")
+    with open(os.path.join(runs["run"], pretrain_main.WATCH_FILE)) as f:
+        watch = [json.loads(line) for line in f]
+    # 2 dispatches logged before the stop, then 1 + 4 after the relaunch
+    check(len(watch) == 2 + 1 + 4 and all(np.isfinite(r["watch/param_norm"])
+                                          for r in watch),
+          f"watch rows {len(watch)}")
+    parity = _eval_parity(runs["run"], test_data, vocab, device)
+    emit({"phase": "resume", "epochs": RESUME_EPOCHS, "k": RESUME_K,
+          "batches_per_epoch": MICRO_STEPS, "accumulation": 4,
+          "marker": marker, "deterministic_algorithms": True,
+          "final_files_bit_equal_to_twin": True, "eval_rows_equal": True,
+          "eval_rows": evals, "relaunch_launches": counts,
+          "k1_per_eval_batch": 12, "trace_kernels": kernels,
+          "optim_bytes": {"mid_accumulation": mid_bytes, "end_of_epoch":
+                          os.path.getsize(os.path.join(runs["run"],
+                                                       "optim.1.bin"))},
+          "model_bytes": os.path.getsize(os.path.join(runs["run"],
+                                                      "model.1.bin")),
+          "save_s": saves, "eval_s_per_batch_cli": [r["eval_time_s"]
+                                                    for r in rows],
+          "startup_s": {"fresh": fresh_startup, "relaunch": startup},
+          "peak_mem_gib": peak, "eval_parity": parity,
+          "wall_s": time.perf_counter() - t_phase})
+    return counts, parity["k1"]
+
+
+def phase_resume_ft(ft_argv: list, d: str, device) -> dict:
+    """The finetune CLI at its defaults with {"fused_ln": true} and
+    --steps_per_dispatch 4 for 2 epochs of 8 batches, under PyTorch's
+    deterministic algorithms: a SIGTERM sent as epoch 0's first group is
+    handed out stops it after that dispatch (marker 0 / 4); the relaunch
+    re-enters epoch 0 at batch 4 and ends with model.1.bin and optim.1.bin
+    equal bit for bit to an uninterrupted run's; one more relaunch, no
+    marker left, resumes by scan at epoch 2 and trains nothing.  Returns
+    the first relaunch's launches."""
+    t_phase = time.perf_counter()
+    runs = {n: os.path.join(d, f"resume_ft_{n}") for n in ("run", "twin")}
+
+    def argv(out):
+        return ft_argv + ["--steps_per_dispatch", "4", "--num_train_epochs",
+                          "2", "--output_dir", out]
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with _SignalAtBatch(finetune_main) as sig:
+            first, _, saves = _run_cli(finetune_main.main,
+                                       argv(runs["run"]))
+        marker = preempt.read_marker(runs["run"])
+        check(first["epochs"] == [] and sig.after == 1
+              and marker == {"epoch": 0, "batches_done": 4},
+              f"preempted finetune: {first}, marker {marker}")
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = finetune_main.main(argv(runs["run"]))["epochs"]
+        relaunch_s = time.perf_counter() - t0
+        counts = read_counts()
+        finetune_main.main(argv(runs["twin"]))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    check([(r["epoch"], r["micro_steps"]) for r in rows]
+          == [(0, 4), (1, FT_MICRO_STEPS)], f"relaunch rows {rows}")
+    micro = 4 + FT_MICRO_STEPS
+    check(counts == {c: v * micro for c, v in KERNEL_COUNTS.items()},
+          f"finetune relaunch launches {counts}")
+    _same_files(runs["run"], runs["twin"], ("model.1.bin", "optim.1.bin"))
+    # no marker left: the scan resumes at epoch 2, past the last one
+    scan = finetune_main.main(argv(runs["run"]))["epochs"]
+    with open(os.path.join(runs["run"], "training.log")) as f:
+        resumed = f.read().count("resumed from epoch 1")
+    check(scan == [] and resumed == 1, f"resume by scan: {scan}")
+    emit({"phase": "resume-ft", "k": 4, "marker": marker,
+          "deterministic_algorithms": True,
+          "final_files_bit_equal_to_twin": True,
+          "resumed_by_scan_at_epoch": 2, "relaunch_launches": counts,
+          "optim_bytes": os.path.getsize(os.path.join(runs["run"],
+                                                      "optim.1.bin")),
+          "model_bytes": os.path.getsize(os.path.join(runs["run"],
+                                                      "model.1.bin")),
+          "relaunch_s": relaunch_s,
+          "wall_s": time.perf_counter() - t_phase})
+    return counts
+
+
+def phase_preempt_clf(d: str, vocab: str, clf_data: str, device) -> None:
+    """The classification CLI at its defaults (batch 56, the trunk
+    trained): a SIGTERM sent as the first batch is handed out is read by
+    the poll after that batch (within preempt.POLL_EVERY batches); the CLI
+    writes model.0.bin and returns with no epoch done; the file holds the
+    in-memory weights, tensor by tensor."""
+    t_phase = time.perf_counter()
+    savedir = os.path.join(d, "clf_preempt")
+    argv = _clf_argv(d, vocab, clf_data) + ["--savedir", savedir,
+                                            "--do_test", "false"]
+    states = []
+    init = classify.init_state
+    classify.init_state = lambda *a, **kw: states.append(
+        init(*a, **kw)) or states[-1]
+    try:
+        with _SignalAtBatch(classification_main) as sig:
+            out = classification_main.main(argv)
+    finally:
+        classify.init_state = init
+    path = os.path.join(savedir, "clf", "model.0.bin")
+    check(out["epochs"] == [] and os.path.exists(path)
+          and 1 <= sig.after <= preempt.POLL_EVERY,
+          f"classification preemption: {out['epochs']}, {sig.after} "
+          f"batches after the signal")
+    saved = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+    own = states[0].model.state_dict()
+    check(saved.keys() == own.keys() and all(
+        torch.equal(saved[k], v.cpu()) for k, v in own.items()),
+        "model.0.bin differs from the in-memory weights")
+    emit({"phase": "preempt-clf", "batches_after_signal": sig.after,
+          "poll_every_limit": preempt.POLL_EVERY, "file_bytes":
+          os.path.getsize(path), "loads_equal_to_memory": True,
+          "wall_s": time.perf_counter() - t_phase})
+    del states, saved, own
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -2976,12 +3391,17 @@ def main() -> int:
         graph_counts = phase_graph_steps(
             ft_argv, data, vocab, os.path.join(d, "clf_data"), ret_paths, d,
             device)
+        resume_counts, eval_k1 = phase_resume(d, data, vocab, device)
+        resume_ft_counts = phase_resume_ft(ft_argv, d, device)
+        phase_preempt_clf(d, vocab, os.path.join(d, "clf_data"), device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
              "train-fused": fused_counts, "finetune": finetune_counts,
              "decode": decode_counts, "classify": classify_counts,
              "classify-fused": clf_fused_counts,
              "retrieve": {k: retrieve_counts[k] for k in ("K1", "K2")},
-             "finetune-graphs": graph_counts}
+             "finetune-graphs": graph_counts,
+             "resume": {k: resume_counts[k] for k in ("K1", "K2")},
+             "resume-ft": resume_ft_counts}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",
@@ -2999,6 +3419,7 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **entries[kid]})
+    kernels[0]["eval_shape"] = eval_k1
     for key, shape in (("serve_shape", "prefill"),
                        ("beam_window_shape", "beam-window")):
         rec = k3_shapes[shape]

@@ -7,7 +7,9 @@ sampled and beam decode with its scoring (cli/decode_main.py, eval/),
 serving (cli/serve_main.py), MMBT classification
 (cli/classification_main.py) and label-conditioned image-text retrieval
 with the CNN_BERT baseline (cli/retrieval_main.py); torch_init.py reads
-pretrained torch checkpoints.  The mask-spec attention forward and backward
-and the fused dropout+residual+LayerNorm forward and backward are
-hand-written CUDA kernels (ops/csrc/).
+pretrained torch checkpoints; checkpoint.py saves and restores the whole
+training state, so the pretrain and finetune CLIs resume after a
+preemption bit for bit.  The mask-spec attention forward and backward and
+the fused dropout+residual+LayerNorm forward and backward are hand-written
+CUDA kernels (ops/csrc/).
 """

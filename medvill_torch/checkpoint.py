@@ -22,13 +22,25 @@ core/torch_init.py:230-296) and of the classification CLI's
   into a ``MultimodalBertClf``: every ``enc.*`` tensor whose name and shape
   the model shares;
 - ``restore_pretrained``: a ``--load_pretrained_model``-style path into a
-  model through a ``torch_init`` loader (core/checkpoint.py:147-190).
+  model through a ``torch_init`` loader (core/checkpoint.py:147-190);
+- ``save_training_state`` / ``restore_training_state`` / ``latest_epoch``:
+  the whole training state of the pretrain and finetune CLIs
+  (core/checkpoint.py:74-127,193-205; the reference's resume scan,
+  sc/finetune.py:37-47).  ``model.<epoch>.bin`` stays the reference layout
+  every downstream CLI reads; ``optim.<epoch>.bin`` holds the rest of a
+  bit-exact resume: the optimizer (``Accumulate.state_dict``), the
+  micro-steps taken, the host generator's state, the loader's epoch and its
+  shared sample stream (``BatchLoader.state``), all CPU tensors and
+  Python values that ``torch.load(weights_only=True)`` reads.  Each file is
+  written under a temporary name and moved into place, the optim file
+  last, after the old one is removed: a kill mid-save leaves no pair that
+  ``latest_epoch`` (the largest N with both files) would pick.
 """
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -199,3 +211,69 @@ def restore_pretrained(model: nn.Module, path: str, torch_loader, logger,
     torch_loader(model, file)
     logger.info("restored %s weights from %s", what, file)
     return file
+
+
+def _paths(directory: str, epoch: int) -> Tuple[str, str]:
+    return (os.path.join(directory, f"model.{epoch}.bin"),
+            os.path.join(directory, f"optim.{epoch}.bin"))
+
+
+def _write(obj, path: str) -> str:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(obj, tmp)
+    return tmp
+
+
+def save_training_state(directory: str, epoch: int, state, generator,
+                        loader, in_epoch: bool) -> Tuple[str, str]:
+    """``model.<epoch>.bin`` and ``optim.<epoch>.bin`` of ``state`` (a
+    ``TrainState``), the host ``generator`` and ``loader`` (a
+    ``BatchLoader``: ``state(in_epoch)``, ``in_epoch`` for a run stopped
+    inside the epoch) under ``directory``; returns their paths."""
+    model_path, optim_path = _paths(directory, epoch)
+    model_tmp = _write({k: v.detach().cpu() for k, v in
+                        state.model.state_dict().items()}, model_path)
+    optim_tmp = _write({"epoch": int(epoch), "step": int(state.step),
+                        "tx": state.tx.state_dict(),
+                        "generator": generator.get_state(),
+                        "loader": loader.state(in_epoch)}, optim_path)
+    try:
+        os.remove(optim_path)  # the old pair is no pair while both move
+    except FileNotFoundError:
+        pass
+    os.replace(model_tmp, model_path)
+    os.replace(optim_tmp, optim_path)
+    return model_path, optim_path
+
+
+def latest_epoch(directory: str) -> Optional[int]:
+    """The largest N with both ``model.N.bin`` and ``optim.N.bin`` in
+    ``directory``, or None."""
+    if not os.path.isdir(directory):
+        return None
+    found: Dict[str, set] = {"model": set(), "optim": set()}
+    for name in os.listdir(directory):
+        m = re.fullmatch(r"(model|optim)\.(\d+)\.bin", name)
+        if m:
+            found[m.group(1)].add(int(m.group(2)))
+    both = found["model"] & found["optim"]
+    return max(both) if both else None
+
+
+def restore_training_state(directory: str, epoch: int, state,
+                           generator=None, loader=None) -> dict:
+    """Loads ``directory``'s epoch ``epoch`` into ``state`` (the model
+    strictly, then the optimizer, in place), and, when given, the host
+    ``generator`` and ``loader`` (``load_state``).  Returns the optim
+    file's contents."""
+    model_path, optim_path = _paths(directory, epoch)
+    state.model.load_state_dict(torch.load(model_path, map_location="cpu",
+                                           weights_only=True))
+    saved = torch.load(optim_path, map_location="cpu", weights_only=True)
+    state.tx.load_state_dict(saved["tx"])
+    state.step = saved["step"]
+    if generator is not None:
+        generator.set_state(saved["generator"])
+    if loader is not None:
+        loader.load_state(saved["loader"])
+    return saved

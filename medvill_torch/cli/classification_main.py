@@ -35,9 +35,17 @@ evaluates ``Test.jsonl``.
 initialize the model before the ``--loaddir`` merge, in the JAX CLI's
 order (``torch_init``).
 
+Preemption (``utils/preempt.py``, save-only as in JAX :253-291): SIGTERM
+is read after every dispatch; the CLI then writes the epoch's
+``model.<epoch>.bin`` as an epoch's end does and returns (exit 0) with
+the epochs done.  A relaunch starts afresh: a classification run is short
+and early-stopped, so there is no position to resume.
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): the mesh/parallelism flags and
-preemption; argparse rejects them like any unknown flag.
+without one.  Not ported (ROADMAP.md): the mesh/parallelism flags (with
+them ``global_any``, whose agreement JAX polls every
+``preempt.POLL_EVERY`` batches); argparse rejects them like any unknown
+flag.
 """
 from __future__ import annotations
 
@@ -66,6 +74,7 @@ from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train import classify
 from medvill_torch.train.dispatch import MultiStep
+from medvill_torch.utils import preempt
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
 from medvill_torch.utils.seed import set_seed
@@ -241,51 +250,68 @@ def train(args) -> dict:
     best_path = os.path.join(savedir, "model.best.bin")
     best_metric, n_no_improve = -np.inf, 0
     rows: List[dict] = []
+
+    def save(epoch: int) -> str:
+        path = os.path.join(savedir, f"model.{epoch}.bin")
+        torch.save({k: v.detach().cpu() for k, v in
+                    state.model.state_dict().items()}, path)
+        return path
+
     try:
-        for epoch in range(cfg.max_epochs):
-            classify.apply_freeze(state.model, epoch < cfg.freeze_img,
-                                  epoch < cfg.freeze_txt)
-            t0 = time.perf_counter()
-            agg: Dict[str, List[torch.Tensor]] = {}
-            for batch, is_group in dispatch_loader(train_loader, device,
-                                                   k=multi_step.k):
-                m = (multi_step if is_group else train_step)(
-                    state, batch, generator)
-                collect_metrics(agg, m, is_group)
-            losses = agg["loss"]
-            train_loss = torch.stack(losses).float().mean().item()
-            epoch_s = time.perf_counter() - t0
-            metrics, _, _ = classify.evaluate(eval_step, state.model,
-                                              valid_loader, cfg.task_type)
-            row: Dict = dict(metrics, epoch=epoch,
-                             train_loss=train_loss, micro_steps=len(losses),
-                             epoch_time_s=epoch_s,
-                             examples_per_s=len(losses) * cfg.batch_size
-                             / epoch_s)
-            tuning = (metrics["micro_f1"] if cfg.task_type == "multilabel"
-                      else metrics["acc"])
-            state.tx.optimizer.plateau = sched.step(tuning)
-            improved = tuning > best_metric
-            if improved:
-                best_metric, n_no_improve = tuning, 0
-            else:
-                n_no_improve += 1
-            row.update(lr_scale=state.tx.optimizer.plateau,
-                       improved=bool(improved))
-            rows.append(row)
-            logger.info("epoch %d: %s", epoch, row)
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps(row) + "\n")
-            _write_csv(os.path.join(savedir, f"{args.save_name}.csv"),
-                       metrics, cfg.task_type)
-            path = os.path.join(savedir, f"model.{epoch}.bin")
-            torch.save({k: v.detach().cpu() for k, v in
-                        state.model.state_dict().items()}, path)
-            if improved:
-                shutil.copyfile(path, best_path)
-            if n_no_improve >= cfg.patience:
-                logger.info("No improvement. Breaking out of loop.")
-                break
+        with preempt.PreemptionGuard(logger=logger) as guard:
+            for epoch in range(cfg.max_epochs):
+                classify.apply_freeze(state.model, epoch < cfg.freeze_img,
+                                      epoch < cfg.freeze_txt)
+                t0 = time.perf_counter()
+                agg: Dict[str, List[torch.Tensor]] = {}
+                for batch, is_group in dispatch_loader(train_loader, device,
+                                                       k=multi_step.k):
+                    m = (multi_step if is_group else train_step)(
+                        state, batch, generator)
+                    collect_metrics(agg, m, is_group)
+                    if guard.triggered:
+                        # save-only (JAX :253-291): a run is short and
+                        # early-stopped, so it keeps the work, no position
+                        path = save(epoch)
+                        logger.info("preempted (signal %s): saved %s",
+                                    guard.signum, path)
+                        return {"epochs": rows, "test": None,
+                                "merged": merged}
+                losses = agg["loss"]
+                train_loss = torch.stack(losses).float().mean().item()
+                epoch_s = time.perf_counter() - t0
+                metrics, _, _ = classify.evaluate(eval_step, state.model,
+                                                  valid_loader,
+                                                  cfg.task_type)
+                row: Dict = dict(metrics, epoch=epoch,
+                                 train_loss=train_loss,
+                                 micro_steps=len(losses),
+                                 epoch_time_s=epoch_s,
+                                 examples_per_s=len(losses) * cfg.batch_size
+                                 / epoch_s)
+                tuning = (metrics["micro_f1"]
+                          if cfg.task_type == "multilabel"
+                          else metrics["acc"])
+                state.tx.optimizer.plateau = sched.step(tuning)
+                improved = tuning > best_metric
+                if improved:
+                    best_metric, n_no_improve = tuning, 0
+                else:
+                    n_no_improve += 1
+                row.update(lr_scale=state.tx.optimizer.plateau,
+                           improved=bool(improved))
+                rows.append(row)
+                logger.info("epoch %d: %s", epoch, row)
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
+                _write_csv(os.path.join(savedir, f"{args.save_name}.csv"),
+                           metrics, cfg.task_type)
+                path = save(epoch)
+                if improved:
+                    shutil.copyfile(path, best_path)
+                if n_no_improve >= cfg.patience:
+                    logger.info("No improvement. Breaking out of loop.")
+                    break
     finally:
         train_loader.close()
         valid_loader.close()

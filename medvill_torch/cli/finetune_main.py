@@ -21,20 +21,30 @@ the last ratio's graphs dropped, since the ratio never goes back)
 len(loader) * epochs // accumulation)`` optimizer steps, drop-worst from
 the epoch after ``--drop_after``).  At the end of each epoch it writes
 ``<output_dir>/model.<epoch>.bin`` in the reference VLP layout (what
-``medvill_torch.convert.load_vlp_checkpoint`` and the serve CLI read) and
-appends the epoch's metrics to ``<output_dir>/metrics.jsonl``; it writes the
-arguments to ``opt.json``.  With ``--tasks vqa --vqa_eval true`` it ends
-with the open/closed accuracy on the test split.
+``medvill_torch.convert.load_vlp_checkpoint`` and the serve CLI read) with
+``optim.<epoch>.bin``, the rest of the training state
+(``checkpoint.save_training_state``), and appends the epoch's metrics to
+``<output_dir>/metrics.jsonl``; it writes the arguments to ``opt.json``.
+With ``--tasks vqa --vqa_eval true`` it ends with the open/closed accuracy
+on the test split.
 
 ``--bert_init_path`` (an HF BERT file, ``torch_init.init_bert_from_torch``
 into the encoder) and ``--resnet_init_path`` (a torchvision ResNet-50 file,
 ``torch_init.init_resnet_from_torch`` into the trunk) initialize the model
 before the recover, in the JAX CLI's order.
 
+Resume (medvill_tpu/cli/finetune_main.py:276-335,368-425): a relaunch
+into an ``--output_dir`` that holds a saved epoch N restores the whole
+training state and goes on at N + 1 (the recover is skipped), or, where a
+preemption marker names N, re-enters N at the marker's batch
+(``BatchLoader.skip_next``).  SIGTERM is read after every dispatch: the
+step ends, the state is saved under the epoch with a marker of the host
+batches trained, and the process returns (exit 0).
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): resume-by-scan and preemption, an
-orbax directory as ``--model_recover_path`` and the mesh/parallelism
-flags; argparse rejects them like any unknown flag.
+without one.  Not ported (ROADMAP.md): an orbax directory as
+``--model_recover_path`` and the mesh/parallelism flags (with them
+``global_any``); argparse rejects them like any unknown flag.
 """
 from __future__ import annotations
 
@@ -43,10 +53,11 @@ import dataclasses
 import json
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
+from medvill_torch import checkpoint as ckpt
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
 from medvill_torch.cli import collect_metrics, str2bool
@@ -58,6 +69,7 @@ from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.data.vqa import VQADataset
 from medvill_torch.train import finetune as ft
 from medvill_torch.train.dispatch import MultiStep
+from medvill_torch.utils import preempt
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger
 from medvill_torch.utils.seed import set_seed
@@ -210,6 +222,31 @@ def _epoch_row(agg: Dict[str, List[torch.Tensor]]) -> dict:
     return row
 
 
+def _resume(cfg: FinetuneConfig, state, generator, loader,
+            logger) -> Optional[tuple]:
+    """(first epoch, host batches of it to skip), or None for a fresh run:
+    resume-by-scan of
+    ``--output_dir`` (medvill_tpu/cli/finetune_main.py:276-335; reference
+    finetune.py:37-47): the latest epoch N with both files restores the
+    whole training state and the run goes on at N + 1, or, where a
+    preemption marker names N, re-enters N at the marker's batch."""
+    recover = ckpt.latest_epoch(cfg.output_dir)
+    if recover is None:
+        return None
+    ckpt.restore_training_state(cfg.output_dir, recover, state, generator,
+                                loader)
+    start, skip = recover + 1, 0
+    logger.info("resumed from epoch %d", recover)
+    marker = preempt.read_marker(cfg.output_dir)
+    if marker is not None:
+        if marker["epoch"] == recover and marker["batches_done"]:
+            start, skip = recover, int(marker["batches_done"])
+            logger.info("preemption marker: re-entering epoch %d at host "
+                        "batch %d", recover, skip)
+        preempt.clear_marker(cfg.output_dir)
+    return loader.resume_at(start, skip)
+
+
 def train(args) -> dict:
     """Runs the epochs and the VQA eval; returns {"epochs": one metrics row
     per epoch, "vqa_eval": the eval's accuracies or None}."""
@@ -248,7 +285,10 @@ def train(args) -> dict:
             trunk_path=("bert", "img_encoder"))
         logger.info("initialized visual trunk from %s",
                     args.resnet_init_path)
-    if cfg.model_recover_path:
+    generator = torch.Generator().manual_seed(cfg.seed)
+    resumed = _resume(cfg, state, generator, loader, logger)
+    start_epoch, skip = resumed or (0, 0)
+    if resumed is None and cfg.model_recover_path:
         loaded, missing = recover_pretrain_into_vlp(state.model,
                                                     cfg.model_recover_path)
         logger.info("recovered %d tensors from %s", len(loaded),
@@ -256,40 +296,63 @@ def train(args) -> dict:
         if missing:
             logger.info("%d keys keep their random init: %s", len(missing),
                         missing)
-    generator = torch.Generator().manual_seed(cfg.seed)
     metrics_path = os.path.join(cfg.output_dir, "metrics.jsonl")
     k = max(1, args.steps_per_dispatch)
     step = multi = ratio_of_multi = None
     rows = []
+
+    def save(epoch: int, in_epoch: bool = False) -> None:
+        t0 = time.perf_counter()
+        paths = ckpt.save_training_state(cfg.output_dir, epoch, state,
+                                         generator, loader, in_epoch)
+        logger.info("saved %s in %.2f s", " and ".join(paths),
+                    time.perf_counter() - t0)
+
     try:
-        for epoch in range(cfg.epochs) if args.do_train else ():
-            ratio = ft.drop_worst_ratio_for_epoch(cfg, epoch)
-            if ratio != ratio_of_multi:
-                # the ratio never goes back: the last one's graphs go, and
-                # their memory pool back to the card
-                multi = None
-                torch.cuda.empty_cache()
-                step = ft.make_train_step(cfg, ratio)
-                multi, ratio_of_multi = MultiStep(step, k), ratio
-            t0 = time.perf_counter()
-            agg: Dict[str, List[torch.Tensor]] = {}
-            for batch, is_group in dispatch_loader(loader, device,
-                                                   keys=_KEYS, k=k):
-                m = (multi if is_group else step)(state, batch, generator)
-                collect_metrics(agg, m, is_group)
-            row = _epoch_row(agg)  # reads the device: the epoch has ended
-            row.update(epoch=epoch, epoch_time_s=time.perf_counter() - t0,
-                       drop_worst_ratio=ratio)
-            row["examples_per_s"] = (row["micro_steps"] * cfg.batch_size
-                                     / row["epoch_time_s"])
-            rows.append(row)
-            logger.info("epoch %d: %s", epoch, row)
-            with open(metrics_path, "a") as f:
-                f.write(json.dumps(row) + "\n")
-            path = os.path.join(cfg.output_dir, f"model.{epoch}.bin")
-            torch.save({k: v.detach().cpu() for k, v in
-                        state.model.state_dict().items()}, path)
-            logger.info("saved %s", path)
+        with preempt.PreemptionGuard(logger=logger) as guard:
+            for epoch in (range(start_epoch, cfg.epochs) if args.do_train
+                          else ()):
+                ratio = ft.drop_worst_ratio_for_epoch(cfg, epoch)
+                if ratio != ratio_of_multi:
+                    # the ratio never goes back: the last one's graphs go,
+                    # and their memory pool back to the card
+                    multi = None
+                    torch.cuda.empty_cache()
+                    step = ft.make_train_step(cfg, ratio)
+                    multi, ratio_of_multi = MultiStep(step, k), ratio
+                t0 = time.perf_counter()
+                agg: Dict[str, List[torch.Tensor]] = {}
+                done = skip if epoch == start_epoch else 0
+                batches = iter(dispatch_loader(loader, device, keys=_KEYS,
+                                               k=k))
+                for batch, is_group in batches:
+                    m = (multi if is_group else step)(state, batch,
+                                                      generator)
+                    collect_metrics(agg, m, is_group)
+                    done += k if is_group else 1
+                    if guard.triggered:
+                        # the resume scan re-enters this epoch at this batch
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        batches.close()
+                        save(epoch, in_epoch=True)
+                        preempt.write_marker(cfg.output_dir, epoch, done)
+                        logger.info("preempted (signal %s): saved epoch %d "
+                                    "at host batch %d to %s; relaunch to "
+                                    "resume", guard.signum, epoch, done,
+                                    cfg.output_dir)
+                        return {"epochs": rows, "vqa_eval": None}
+                row = _epoch_row(agg)  # reads the device: the epoch ended
+                row.update(epoch=epoch,
+                           epoch_time_s=time.perf_counter() - t0,
+                           drop_worst_ratio=ratio)
+                row["examples_per_s"] = (row["micro_steps"] * cfg.batch_size
+                                         / row["epoch_time_s"])
+                rows.append(row)
+                logger.info("epoch %d: %s", epoch, row)
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
+                save(epoch)
     finally:
         loader.close()
     results = None

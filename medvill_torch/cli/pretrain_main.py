@@ -14,17 +14,40 @@ card, a loop of eager steps on the CPU; an epoch's tail batches train
 alone) (AdamW at constant ``--lr``: the JAX CLI
 parses ``--warmup`` and applies no schedule, and neither does this one;
 ``--dropout_prob`` is parsed and, as there, does not change the model's
-dropout rates).  At the end of every ``--save_interval``-th epoch and of the
-last one it writes ``<output_path>/model.<epoch>.bin``, a state dict in the
-reference pretrain layout (``enc.* mlm.predictions.* itm.linear.*``;
-``medvill_torch.convert.load_cxrbert_checkpoint`` reads it), and appends
-the epoch's metrics to ``<output_path>/metrics.jsonl``.
+dropout rates).  ``--hf_bert_checkpoint`` (alias ``--bert_init_path``) and
+``--resnet_init_path`` initialize the encoder and the trunk from torch
+files (``torch_init``), then ``--weight_load`` restores
+``--pre_trained_model_path``: a CXRBERT-layout file, or a run directory
+whose latest saved epoch restores the whole training state; a warning
+names a frozen trunk that none of them set.
+
+At the end of every ``--save_interval``-th epoch and of the last one it
+writes ``<output_path>/model.<epoch>.bin``, a state dict in the reference
+pretrain layout (``enc.* mlm.predictions.* itm.linear.*``;
+``medvill_torch.convert.load_cxrbert_checkpoint`` reads it), and
+``optim.<epoch>.bin``, the rest of the training state
+(``checkpoint.save_training_state``), and appends the epoch's metrics,
+with ``--test_dataset``'s held-out eval (``eval_avg_*``, K1 alone on the
+card), to ``<output_path>/metrics.jsonl``.  Every ``--watch_interval``
+dispatches it appends parameter and Adam-moment norms to ``watch.jsonl``;
+``--profile_dir`` gets a torch.profiler Chrome trace of dispatches 2-4 of
+epoch 0 (``pretrain_trace.json``).
+
+Preemption (``utils/preempt.py``): SIGTERM is read after every dispatch.
+Mid-epoch it ends the step, stops the prefetch, saves the whole state
+under the epoch and writes ``preempt.json`` with the host batches trained;
+in the eval or the save it saves and marks the whole epoch.  The process
+then returns (exit 0).  A relaunch of the same command restores from the
+marker (before ``--pre_trained_model_path``), skips the trained batches
+(``BatchLoader.skip_next``) and continues bit for bit as the run that was
+not stopped.
 
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): resume and preemption,
-``--test_dataset`` eval, the mesh/parallelism
-flags, ``--watch_interval``, ``--profile_dir``, ``--hf_bert_checkpoint`` and
-``--resnet_init_path``; argparse rejects them like any unknown flag.
+without one.  Not ported (ROADMAP.md): the mesh/parallelism flags (and
+with them ``global_any``, the hosts' agreement to stop), the ViT encoder
+and an orbax directory as ``--pre_trained_model_path``
+(``medvill_tpu.cli.export_main`` converts one); argparse rejects them like
+any unknown flag.
 """
 from __future__ import annotations
 
@@ -36,6 +59,8 @@ from typing import Dict, List
 
 import torch
 
+from medvill_torch import checkpoint as ckpt
+from medvill_torch import torch_init
 from medvill_torch.cli import collect_metrics, str2bool
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   PretrainConfig)
@@ -44,20 +69,32 @@ from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
                                          dispatch_loader)
 from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train.dispatch import MultiStep
-from medvill_torch.train.pretrain import init_state, make_train_step
+from medvill_torch.train.pretrain import (init_state, make_eval_step,
+                                          make_train_step, to_device)
+from medvill_torch.utils import preempt
 from medvill_torch.utils.device import resolve_device
-from medvill_torch.utils.logging import create_logger
+from medvill_torch.utils.logging import create_logger, watch_norms
 from medvill_torch.utils.seed import set_seed
+
+TRACE_FILE = "pretrain_trace.json"
+WATCH_FILE = "watch.jsonl"
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     # datasets (reference: main_origin.py:68-73)
     p.add_argument("--train_dataset", type=str, required=True)
+    p.add_argument("--test_dataset", type=str, default=None,
+                   help="held-out records: the MLM/ITM eval after each "
+                        "epoch (eval_avg_* in metrics.jsonl)")
     p.add_argument("--vocab_file", type=str, required=True,
                    help="BERT wordpiece vocab.txt")
     p.add_argument("--output_path", type=str, default="output")
     p.add_argument("--log_freq", type=int, default=10)
+    p.add_argument("--watch_interval", type=int, default=1000,
+                   help="dispatches between parameter and Adam-moment norm "
+                        "rows in watch.jsonl (the reference's wandb.watch, "
+                        "models/train_origin.py:51); 0 disables")
     # tasks
     p.add_argument("--mlm_task", type=str2bool, default=True)
     p.add_argument("--itm_task", type=str2bool, default=True)
@@ -88,7 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_load", type=str2bool, default=False)
     p.add_argument("--pre_trained_model_path", type=str, default=None,
                    help="with --weight_load: a pretrain checkpoint file in "
-                        "the CXRBERT layout to start from")
+                        "the CXRBERT layout, or a run directory whose "
+                        "latest saved epoch restores the whole training "
+                        "state")
     p.add_argument("--img_postion", type=str2bool, default=True)
     p.add_argument("--seq_len", type=int, default=253)
     p.add_argument("--max_seq_len", type=int, default=512)
@@ -108,8 +147,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--beta2", type=float, default=0.999)
     p.add_argument("--eps", type=float, default=1e-6)
     p.add_argument("--weight_decay", type=float, default=0.0)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of dispatches "
+                        "2-4 of epoch 0 here")
     p.add_argument("--save_interval", type=int, default=1,
-                   help="checkpoint every N epochs (the last one always)")
+                   help="checkpoint every N epochs (the last one always; "
+                        "preemption saves are unaffected)")
+    p.add_argument("--hf_bert_checkpoint", "--bert_init_path",
+                   dest="hf_bert_checkpoint", type=str, default=None,
+                   help="torch state_dict of an HF BERT to initialize the "
+                        "joint encoder (cxrbert_origin.py:42-55)")
+    p.add_argument("--resnet_init_path", type=str, default=None,
+                   help="torchvision resnet50 .pth to initialize the "
+                        "visual trunk (models/image.py:50 pretrained=True)")
     p.add_argument("--freeze_img_trunk", type=str2bool, default=True,
                    help="freeze the entire ResNet trunk (the reference's "
                         "executed behavior, cxrbert_origin.py:65-70); false "
@@ -133,7 +183,8 @@ def config_from_args(args) -> PretrainConfig:
         num_image_embeds=args.num_image_embeds,
         freeze_prefix_stages=args.freeze_img_trunk)
     return PretrainConfig(
-        train_dataset=args.train_dataset, output_path=args.output_path,
+        train_dataset=args.train_dataset, test_dataset=args.test_dataset,
+        output_path=args.output_path,
         log_freq=args.log_freq, mlm_task=args.mlm_task,
         itm_task=args.itm_task, attn_1d=args.attn_1d,
         bar_attn=args.BAR_attn, mixed=args.Mixed, s2s_prob=args.s2s_prob,
@@ -162,8 +213,109 @@ def _epoch_row(agg: Dict[str, List[torch.Tensor]]) -> dict:
     return row
 
 
+def _initialize(args, cfg: PretrainConfig, state, generator,
+                logger) -> None:
+    """The JAX CLI's initializers, in its order (:207-268): an HF BERT file
+    into the joint encoder, a torchvision ResNet-50 into the trunk, then
+    ``--weight_load`` from ``--pre_trained_model_path``: a file in the
+    CXRBERT layout, or a run directory whose latest saved epoch restores
+    the whole training state (model, optimizer, micro-steps and the host
+    ``generator``).  A path that is neither raises."""
+    if args.hf_bert_checkpoint:
+        torch_init.init_bert_from_torch(
+            state.model, args.hf_bert_checkpoint, enc_key="enc",
+            num_layers=cfg.bert.num_hidden_layers)
+        logger.info("initialized joint encoder from %s",
+                    args.hf_bert_checkpoint)
+    if args.resnet_init_path:
+        torch_init.init_resnet_from_torch(state.model, args.resnet_init_path,
+                                          trunk_path=("enc", "img_encoder"))
+        logger.info("initialized visual trunk from %s (trunk frozen=%s)",
+                    args.resnet_init_path, cfg.image.freeze_prefix_stages)
+    path = cfg.pre_trained_model_path
+    restored = bool(cfg.weight_load and path)
+    if restored and os.path.isfile(path):
+        load_cxrbert_checkpoint(state.model, path)
+        logger.info("restored %s", path)
+    elif restored:
+        epoch = ckpt.latest_epoch(path)
+        if epoch is None:
+            raise FileNotFoundError(
+                f"--pre_trained_model_path {path}: neither a checkpoint file "
+                "nor a run directory with model.<N>.bin and optim.<N>.bin")
+        ckpt.restore_training_state(path, epoch, state, generator)
+        logger.info("restored %s epoch %d", path, epoch)
+    if cfg.image.freeze_prefix_stages and not args.resnet_init_path \
+            and not restored:
+        # the reference freezes an ImageNet trunk (image.py:50); the
+        # checkpoint, when restored, holds the trunk too
+        logger.warning(
+            "the ResNet trunk is frozen (reference semantics) and randomly "
+            "initialized: pass --resnet_init_path with torchvision "
+            "ResNet-50 weights for reference-equivalent training, or "
+            "--freeze_img_trunk false to train the trunk")
+
+
+def _resume(cfg: PretrainConfig, state, generator, loader,
+            logger) -> tuple:
+    """(first epoch, host batches of it to skip): a preempted run's marker
+    in ``--output_path`` restores its whole state (it takes precedence
+    over ``--pre_trained_model_path``, which that run already holds); a
+    marker that covers its epoch continues at the next one (:303-361)."""
+    marker = preempt.read_marker(cfg.output_path)
+    if marker is None:
+        return 0, 0
+    start, skip = int(marker["epoch"]), int(marker["batches_done"])
+    ckpt.restore_training_state(cfg.output_path, start, state, generator,
+                                loader)
+    preempt.clear_marker(cfg.output_path)
+    logger.info("resuming preempted run from %s: epoch %d, %d host batches "
+                "already trained", cfg.output_path, start, skip)
+    return loader.resume_at(start, skip)
+
+
+def _start_trace(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, device: torch.device, directory: str, logger) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, TRACE_FILE)
+    prof.export_chrome_trace(path)
+    logger.info("wrote the profile of dispatches 2-4 to %s", path)
+
+
+def _evaluate(eval_step, state, test_loader, test_ds, seed: int,
+              device) -> dict:
+    """The held-out eval's ``eval_avg_<k>`` over ``test_loader``; the test
+    set's stream restarts from its seed, so every eval (and a resumed
+    run's) sees the same masked inputs."""
+    test_ds.rng.seed(seed)
+    t0 = time.perf_counter()
+    agg: Dict[str, List[torch.Tensor]] = {}
+    for batch in test_loader:
+        collect_metrics(agg, eval_step(state.model, to_device(batch, device)),
+                        False)
+    row = {f"eval_avg_{k}": torch.stack(v).float().mean().item()
+           for k, v in agg.items()}
+    row["eval_time_s"] = time.perf_counter() - t0
+    row["eval_batches"] = len(agg.get("loss", ()))
+    return row
+
+
 def train(args) -> List[dict]:
-    """Runs the epochs; returns one metrics row per epoch."""
+    """Runs the epochs; returns one metrics row per epoch trained (none
+    after a preemption in this process's first epoch)."""
     device = resolve_device(args.device)
     set_seed(args.seed)
     cfg = config_from_args(args)
@@ -179,48 +331,108 @@ def train(args) -> List[dict]:
     if len(loader) == 0:
         raise ValueError(f"{cfg.train_dataset}: {len(dataset)} records make "
                          f"no batch of {cfg.batch_size}")
+    test_loader = None
+    if cfg.test_dataset:
+        test_ds = CXRPretrainDataset(cfg.test_dataset, tokenizer, cfg,
+                                     seed=cfg.seed + 1)
+        test_loader = BatchLoader(test_ds, cfg.batch_size, shuffle=False)
+        eval_step = make_eval_step(cfg)
     state = init_state(cfg, device=device)
-    restored = bool(cfg.weight_load and cfg.pre_trained_model_path)
-    if restored:
-        load_cxrbert_checkpoint(state.model, cfg.pre_trained_model_path)
-        logger.info("restored %s", cfg.pre_trained_model_path)
-    if cfg.image.freeze_prefix_stages and not restored:
-        # the checkpoint, when restored, holds the trunk too
-        logger.warning("the ResNet trunk is frozen (reference semantics) "
-                       "and randomly initialized: no ImageNet weights are "
-                       "loaded by the port")
+    generator = torch.Generator().manual_seed(cfg.seed)
+    _initialize(args, cfg, state, generator, logger)
+    start_epoch, skip = _resume(cfg, state, generator, loader, logger)
+    # a consumed mid-epoch marker left epoch start_epoch's files holding a
+    # mid-epoch state: that epoch's end overwrites them whatever
+    # --save_interval says
+    force_save_epoch = start_epoch if skip else -1
     k = max(1, args.steps_per_dispatch)
     train_step = make_train_step(cfg)
     multi_step = MultiStep(train_step, k)
-    generator = torch.Generator().manual_seed(cfg.seed)
-    rows = []
+    metrics_path = os.path.join(cfg.output_path, "metrics.jsonl")
+    rows: List[dict] = []
+
+    def save(epoch: int, in_epoch: bool = False) -> None:
+        t0 = time.perf_counter()
+        paths = ckpt.save_training_state(cfg.output_path, epoch, state,
+                                         generator, loader, in_epoch)
+        logger.info("saved %s in %.2f s", " and ".join(paths),
+                    time.perf_counter() - t0)
+
+    guard = preempt.PreemptionGuard(logger=logger)
     try:
-        for epoch in range(cfg.epochs):
-            t0 = time.perf_counter()
-            agg: Dict[str, List[torch.Tensor]] = {}
-            for i, (batch, is_group) in enumerate(
-                    dispatch_loader(loader, device, k=k)):
-                m = (multi_step if is_group else train_step)(
-                    state, batch, generator)
-                collect_metrics(agg, m, is_group)
-                if i % cfg.log_freq == 0:
-                    logger.info("epoch %d it %d loss %.4f", epoch, i,
-                                m["loss"].float().mean().item())
-            row = _epoch_row(agg)  # reads the device: the epoch has ended
-            row.update(epoch=epoch, epoch_time_s=time.perf_counter() - t0)
-            row["pairs_per_s"] = (row["micro_steps"] * cfg.batch_size
-                                  / row["epoch_time_s"])
-            rows.append(row)
-            logger.info("epoch %d done: %s", epoch, row)
-            with open(os.path.join(cfg.output_path, "metrics.jsonl"),
-                      "a") as f:
-                f.write(json.dumps(row) + "\n")
-            if (epoch + 1) % max(1, args.save_interval) == 0 \
-                    or epoch + 1 == cfg.epochs:
-                path = os.path.join(cfg.output_path, f"model.{epoch}.bin")
-                torch.save({k: v.detach().cpu() for k, v in
-                            state.model.state_dict().items()}, path)
-                logger.info("saved %s", path)
+        with guard:
+            for epoch in range(start_epoch, cfg.epochs):
+                t0 = time.perf_counter()
+                agg: Dict[str, List[torch.Tensor]] = {}
+                done = skip if epoch == start_epoch else 0
+                batches = iter(dispatch_loader(loader, device, k=k))
+                trace = None
+                for i, (batch, is_group) in enumerate(batches):
+                    if args.profile_dir and epoch == 0 and i == 2:
+                        trace = _start_trace(device)
+                    m = (multi_step if is_group else train_step)(
+                        state, batch, generator)
+                    done += k if is_group else 1
+                    if guard.triggered:
+                        # the step ends, the prefetch stops; the batches it
+                        # loaded ahead are dropped: the marker counts the
+                        # trained ones
+                        if device.type == "cuda":
+                            torch.cuda.synchronize(device)
+                        batches.close()
+                        if trace is not None:
+                            _stop_trace(trace, device, args.profile_dir,
+                                        logger)
+                        save(epoch, in_epoch=True)
+                        preempt.write_marker(cfg.output_path, epoch, done)
+                        logger.info("preempted (signal %s): saved epoch %d "
+                                    "at host batch %d to %s; relaunch to "
+                                    "resume", guard.signum, epoch, done,
+                                    cfg.output_path)
+                        return rows
+                    if trace is not None and i == 4:
+                        _stop_trace(trace, device, args.profile_dir, logger)
+                        trace = None
+                    collect_metrics(agg, m, is_group)
+                    if i % cfg.log_freq == 0:
+                        logger.info("epoch %d it %d loss %.4f", epoch, i * k,
+                                    m["loss"].float().reshape(-1)[-1].item())
+                    if args.watch_interval and i % args.watch_interval == 0:
+                        # off the hot path: one read of the device
+                        with open(os.path.join(cfg.output_path,
+                                               WATCH_FILE), "a") as f:
+                            f.write(json.dumps(dict(
+                                watch_norms(state.model, state.tx),
+                                epoch=epoch, step=epoch * 10 ** 6 + i * k))
+                                + "\n")
+                if trace is not None:
+                    _stop_trace(trace, device, args.profile_dir, logger)
+                row = _epoch_row(agg)  # reads the device: the epoch ended
+                row.update(epoch=epoch,
+                           epoch_time_s=time.perf_counter() - t0)
+                row["pairs_per_s"] = (row["micro_steps"] * cfg.batch_size
+                                      / row["epoch_time_s"])
+                if test_loader is not None:
+                    row.update(_evaluate(eval_step, state, test_loader,
+                                         test_ds, cfg.seed + 1, device))
+                rows.append(row)
+                logger.info("epoch %d done: %s", epoch, row)
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(row) + "\n")
+                save_now = ((epoch + 1) % max(1, args.save_interval) == 0
+                            or epoch + 1 == cfg.epochs
+                            or epoch == force_save_epoch)
+                if save_now:
+                    save(epoch)
+                if guard.triggered and epoch + 1 < cfg.epochs:
+                    # preempted in the eval or the save: the epoch is done
+                    if not save_now:
+                        save(epoch)
+                    preempt.write_marker(cfg.output_path, epoch, len(loader))
+                    logger.info("preempted (signal %s) at the end of epoch "
+                                "%d; relaunch to resume at epoch %d",
+                                guard.signum, epoch, epoch + 1)
+                    return rows
     finally:
         loader.close()
     return rows

@@ -1,6 +1,7 @@
 """Pretraining data pipeline: JSONL -> numpy batches of (ids, labels, spec)
-(a copy of medvill_tpu/data/pretrain.py without its multi-host sharding and
-mid-epoch resume), and the training CLIs' input pipeline,
+(a copy of medvill_tpu/data/pretrain.py without its multi-host sharding),
+with its mid-epoch resume (``BatchLoader.skip_next``), and the training
+CLIs' input pipeline,
 ``dispatch_loader``: a ``PrefetchLoader`` that builds, groups
 (``grouped_batches``, for k micro-steps per dispatch) and places the next
 batches on the device on a background thread while the step runs.
@@ -13,6 +14,7 @@ package's bit for bit.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import queue
@@ -66,11 +68,14 @@ class CXRPretrainDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         return self.fetch(idx)
 
-    def fetch(self, idx: int,
-              rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+    def fetch(self, idx: int, rng: Optional[random.Random] = None,
+              load_image: bool = True
+              ) -> Optional[Dict[str, np.ndarray]]:
         """Like ``__getitem__`` with an optional per-sample RNG (used by
         ``BatchLoader(workers>1)``); ``None`` draws from the shared
-        sequential stream."""
+        sequential stream.  ``load_image=False`` (``BatchLoader.skip_next``'s
+        replay) makes every draw of a real fetch, loads no image and
+        returns None."""
         rng = rng or self.rng
         origin_txt, img_path, is_aligned, _ = random_pair_sampling(
             idx, self.data, rng)
@@ -100,6 +105,8 @@ class CXRPretrainDataset:
                        if rng.random() < self.cfg.bi_prob else MaskVariant.S2S)
         else:
             variant = self.static_variant
+        if not load_image:  # every draw is made: the image takes none
+            return None
 
         return dict(
             cls_tok=np.array([self.vocab["[CLS]"]], np.int32),
@@ -126,7 +133,24 @@ class BatchLoader:
     epoch is the same for any worker count; ``workers == 1`` draws from the
     dataset's shared sequential stream.  The shuffle order is numpy's
     ``default_rng(seed + epoch)``, as in the JAX package.  ``close`` stops
-    the thread pool."""
+    the thread pool.
+
+    ``skip_next(n)`` skips the first n batches of the next iteration only
+    (mid-epoch resume, medvill_tpu/data/pretrain.py:191-209): the order is
+    a pure function of (seed, epoch), so the rest equal an uninterrupted
+    epoch's tail; with ``workers > 1`` so do their samples (their RNG is
+    (seed, epoch, index)); with ``workers == 1`` the skipped samples' draws
+    are replayed from the shared stream through ``fetch(idx,
+    load_image=False)`` (a dataset without that keyword is skipped by
+    position only).  ``state(in_epoch)`` is where the loader stands, for a
+    resume: with ``in_epoch`` the epoch of the latest iteration and its
+    shared stream's (``dataset.rng``) state at that iteration's start (a
+    run stopped inside that epoch; the prefetch may have read on), else the
+    next epoch and the stream's state now (a run between epochs).
+    ``load_state`` puts it back, so a resumed run replays the stream from
+    where the interrupted one stood (the JAX package restarts it from the
+    seed), and ``resume_at(epoch, batches_done)`` sets the skip (an epoch
+    begun and not finished before it runs as a skipped iteration)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, workers: int = 1, drop_last: bool = True):
@@ -138,6 +162,41 @@ class BatchLoader:
         self.workers = workers
         self.drop_last = drop_last
         self._pool: Optional[ThreadPoolExecutor] = None
+        self._skip = 0
+        self._at_start = {"epoch": 0, "stream": None}
+
+    def skip_next(self, n_batches: int) -> None:
+        self._skip = int(n_batches)
+
+    def _stream(self) -> Optional[random.Random]:
+        stream = getattr(self.dataset, "rng", None)
+        return stream if isinstance(stream, random.Random) else None
+
+    def state(self, in_epoch: bool) -> dict:
+        if in_epoch:
+            return dict(self._at_start)
+        stream = self._stream()
+        return {"epoch": self.epoch,
+                "stream": None if stream is None else stream.getstate()}
+
+    def load_state(self, state: dict) -> None:
+        self.epoch = int(state["epoch"])
+        stream = self._stream()
+        if state["stream"] is not None and stream is not None:
+            stream.setstate(state["stream"])
+
+    def resume_at(self, epoch: int, batches_done: int) -> tuple:
+        """Makes the next iteration continue ``epoch`` after its first
+        ``batches_done`` batches, or the next epoch where they are all of
+        them; returns that (epoch, batches skipped)."""
+        if batches_done >= len(self):
+            epoch, batches_done = epoch + 1, 0
+        while self.epoch < epoch:  # epochs begun, not finished: replayed
+            self.skip_next(len(self))
+            for _ in self:
+                pass
+        self.skip_next(batches_done)
+        return epoch, batches_done
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -166,11 +225,20 @@ class BatchLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        stream = self._stream()
+        self._at_start = {"epoch": self.epoch, "stream": None if stream is None
+                          else stream.getstate()}
         # advanced before the fetches, as in the JAX package, so the
         # per-sample RNGs of epoch e are keyed by e + 1 there too
         self.epoch += 1
         B = self.batch_size
-        for i in range(len(self)):
+        start, self._skip = self._skip, 0
+        fetch = getattr(self.dataset, "fetch", None)
+        if start and self.workers <= 1 and fetch is not None and \
+                "load_image" in inspect.signature(fetch).parameters:
+            for j in order[:start * B]:
+                fetch(int(j), load_image=False)
+        for i in range(start, len(self)):
             yield collate(self._fetch(order[i * B:(i + 1) * B]))
 
 

@@ -11,8 +11,9 @@ part of medvill_tpu/data/seq2seq.py; reference: sc/data_loader.py:61-452).
   the 2-D mask as a ``(variant id, n_tokens)`` spec.
 
 From the same records, tokenizer, config and seed the examples equal the
-JAX package's byte for byte.  ``Seq2seqDecodePreprocessor`` is the decode
-CLI's.  The resume replay (``fetch(load_image=False)``) is not ported.
+JAX package's byte for byte.  ``fetch(idx, load_image=False)`` is the
+resume replay of ``BatchLoader.skip_next``: every draw, no image.
+``Seq2seqDecodePreprocessor`` is the decode CLI's.
 """
 from __future__ import annotations
 
@@ -154,16 +155,20 @@ class Img2TxtDataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         return self.fetch(idx)
 
-    def fetch(self, idx: int,
-              rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+    def fetch(self, idx: int, rng: Optional[random.Random] = None,
+              load_image: bool = True
+              ) -> Optional[Dict[str, np.ndarray]]:
         """``__getitem__`` with an optional per-sample RNG (used by
         ``BatchLoader(workers>1)``); ``None`` draws from the shared
-        sequential stream."""
+        sequential stream.  ``load_image=False`` makes the draws and
+        returns None (``BatchLoader.skip_next``'s replay)."""
         rec = self.data[idx]
         tokens_b = self.tokenizer.tokenize(rec["text"])
         proc = (rng or self.rng).choices(self.pipelines,
                                          weights=self.probs)[0]
         out = proc(tokens_b, rng=rng)
+        if not load_image:
+            return None
         out["image"] = image_lib.as_wire_image(self.image_loader(rec["img"]))
         return out
 

@@ -115,16 +115,20 @@ class VQADataset:
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         return self.fetch(idx)
 
-    def fetch(self, idx: int,
-              rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+    def fetch(self, idx: int, rng: Optional[random.Random] = None,
+              load_image: bool = True
+              ) -> Optional[Dict[str, np.ndarray]]:
         """``__getitem__`` with an optional per-sample RNG (see
-        ``BatchLoader(workers>1)``)."""
+        ``BatchLoader(workers>1)``); ``load_image=False`` makes the draws
+        and returns None (``BatchLoader.skip_next``'s replay)."""
         e = self.entries[idx]
         q_tokens = self.tokenizer.tokenize(
             preprocess_question(e["question"]))
         proc = (rng or self.rng).choices(self.pipelines,
                                          weights=self.probs)[0]
         out = proc(q_tokens, rng=rng)
+        if not load_image:
+            return None
         out["image"] = image_lib.as_wire_image(
             self.image_loader(e["image_name"]))
         out["ans_target"] = soft_target(e.get("answer"),

@@ -41,6 +41,12 @@ of a k-batch group.
   steps.  Once a state has been graphed its gradients are zeroed in place
   (``Accumulate.keep_grads``) for good, eager steps included, so the
   ``.grad`` buffers keep the addresses the graphs captured.
+- A state restored from a checkpoint (``Accumulate.load_state_dict``) is
+  copied into the tensors that exist, the ``.grad`` buffers and the
+  optimizer's moments and step among them, so graphs captured before the
+  restore read the restored values; in a fresh process the first
+  micro-step of each kind still runs eagerly and makes them.  A resumed
+  run at k > 1 equals the run that never stopped at the same k.
 - On the CPU a ``MultiStep`` runs the k micro-steps eagerly, one after
   another.
 """

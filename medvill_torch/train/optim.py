@@ -43,6 +43,19 @@ train/finetune.py:199-208).
 - ``SCHEDULES``: ``warmup_linear`` (decays as ``max((x - 1) / (warmup -
   1), 0)``), ``warmup_constant``, ``warmup_cosine``
   (reference: sc/pytorch_pretrained_bert/optimization.py:32-44).
+- ``Accumulate.state_dict`` / ``load_state_dict``: the whole optimizer
+  state as CPU tensors and Python values (per parameter in
+  ``param_groups`` order: AdamW's moments and step, BertAdam's moments;
+  BertAdam's ``opt_step`` and ``plateau``; ``count``; the gradients summed
+  so far when a run stops mid-accumulation: JAX saves ``MultiSteps``'
+  ``acc_grads``), so a state saved after micro-step n and loaded gives the
+  next micro-step of the run that never stopped.  The load copies into the
+  tensors that already exist (the moments, the ``.grad`` buffers that
+  ``keep_grads`` keeps and a CUDA graph reads) and makes the others on
+  each parameter's device, AdamW's step on the device when ``capturable``;
+  so a file written on the card loads on the CPU and the other way round.
+  BertAdam's device lr is written from the restored ``opt_step`` by the
+  next ``prepare``.
 """
 from __future__ import annotations
 
@@ -65,6 +78,12 @@ class AdamW(torch.optim.AdamW):
         self.step()
 
     def finish(self) -> None:
+        pass
+
+    def host_state(self) -> dict:
+        return {}
+
+    def load_host_state(self, host: dict) -> None:
         pass
 
 
@@ -161,6 +180,13 @@ class BertAdam(torch.optim.Optimizer):
     def finish(self) -> None:
         self.opt_step += 1
 
+    def host_state(self) -> dict:
+        return {"opt_step": self.opt_step, "plateau": self.plateau}
+
+    def load_host_state(self, host: dict) -> None:
+        self.opt_step = int(host["opt_step"])
+        self.plateau = float(host["plateau"])
+
     def step(self, closure=None):
         self.prepare()
         self.device_step()
@@ -254,3 +280,68 @@ class Accumulate:
             self.apply_device()
         self.finish(applied)
         return applied
+
+    def _params(self) -> List[nn.Parameter]:
+        return [p for group in self.optimizer.param_groups
+                for p in group["params"]]
+
+    def state_dict(self) -> dict:
+        """See the module docstring; ``grads`` is None at a count of 0."""
+        opt, params = self.optimizer, self._params()
+        return {
+            "optimizer": type(opt).__name__,
+            "state": [{k: v.detach().cpu() if torch.is_tensor(v) else v
+                       for k, v in opt.state[p].items()} for p in params],
+            "host": opt.host_state(),
+            "count": self.count,
+            "grads": [None if p.grad is None else p.grad.detach().cpu()
+                      for p in params] if self.count else None}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """``state_dict``'s output into this optimizer, in place where a
+        tensor exists (see the module docstring); raises ValueError on
+        another optimizer, parameter count or shape."""
+        opt, params = self.optimizer, self._params()
+        if sd["optimizer"] != type(opt).__name__ \
+                or len(sd["state"]) != len(params):
+            raise ValueError(
+                f"optimizer state of {sd['optimizer']} over "
+                f"{len(sd['state'])} parameters, not of "
+                f"{type(opt).__name__} over {len(params)}")
+        on_device = {id(p): g.get("capturable", False) or g.get("fused", False)
+                     for g in opt.param_groups for p in g["params"]}
+        grads = sd["grads"] or [None] * len(params)
+        for p, saved, g in zip(params, sd["state"], grads):
+            live = opt.state[p]
+            if not saved:
+                live.clear()  # a parameter the saved run never updated
+            for k, v in saved.items():
+                if not torch.is_tensor(v):
+                    live[k] = v
+                    continue
+                if v.dim() and v.shape != p.shape:
+                    raise ValueError(f"optimizer state {k} of shape "
+                                     f"{tuple(v.shape)} for a parameter of "
+                                     f"{tuple(p.shape)}")
+                if k in live and live[k].shape == v.shape:
+                    live[k].copy_(v)
+                elif k == "step":
+                    live[k] = v.to(torch.float32, copy=True).to(
+                        p.device if on_device[id(p)] else "cpu")
+                else:
+                    live[k] = v.to(p.device, p.dtype, copy=True)
+            if g is not None and g.shape != p.shape:
+                raise ValueError(f"a gradient of shape {tuple(g.shape)} for "
+                                 f"a parameter of {tuple(p.shape)}")
+            if g is None:
+                if p.grad is not None and self.keep_grads:
+                    p.grad.zero_()
+                else:
+                    p.grad = None
+            elif p.grad is not None:
+                p.grad.copy_(g)
+            else:
+                p.grad = g.to(p.device, p.dtype, copy=True)
+        opt.load_host_state(sd["host"])
+        self.count = int(sd["count"])

@@ -18,6 +18,9 @@ accuracy counts kept on the device (reference: models/train_origin.py:
   explicit ``torch.Generator`` on the host; ``dispatch.MultiStep`` of
   it runs k of its micro-steps per dispatch (CUDA graphs on the card;
   medvill_tpu/train/pretrain.py:271 ``make_multi_train_step``).
+- ``make_eval_step`` is the held-out MLM/ITM eval of the CLI's
+  ``--test_dataset`` (medvill_tpu/train/pretrain.py:297-314): eval mode,
+  no dropout, the trunk on its running statistics, K1 alone on the card.
 - With ``use_flash_attention`` (the default) attention runs the mask-spec
   kernels K1/K2 (ops/flash_attention.py); otherwise ``mha_reference`` on
   the dense -10000 bias.  ``BertConfig.fused_ln`` selects K3/K4.
@@ -176,6 +179,37 @@ def make_train_step(cfg: PretrainConfig) -> MicroStep:
     return MicroStep(
         lambda model, batch, rng, pix: pretrain_loss_and_metrics(
             model, batch, rng, pix, cfg, train=True), pixel_draw(cfg))
+
+
+def eval_pixel_indices(cfg: PretrainConfig) -> Optional[torch.Tensor]:
+    """The eval's fixed pixel indices (random-pixel encoder), else None:
+    one draw from ``torch.Generator().manual_seed(0)``.  JAX draws its
+    fixed permutation from ``jax.random.PRNGKey(0)``, which no torch
+    generator reproduces, so the two evals sample other fibers; handed the
+    same indices (``make_eval_step(cfg, pixel_indices)``) they agree."""
+    draw = pixel_draw(cfg)
+    return None if draw is None else draw(torch.Generator().manual_seed(0))
+
+
+def make_eval_step(cfg: PretrainConfig,
+                   pixel_indices: Optional[torch.Tensor] = None
+                   ) -> Callable[[CXRBERT, Batch], Dict[str, torch.Tensor]]:
+    """Returns ``eval_step(model, batch) -> metrics``: the loss and the
+    metrics of ``pretrain_loss_and_metrics`` (JAX's keys) in eval mode, no
+    dropout, no gradient, the trunk on its running statistics, the pixel
+    indices ``eval_pixel_indices(cfg)`` unless given."""
+    if pixel_indices is None:
+        pixel_indices = eval_pixel_indices(cfg)
+
+    @torch.no_grad()
+    def eval_step(model: CXRBERT, batch: Batch) -> Dict[str, torch.Tensor]:
+        pix = None
+        if pixel_indices is not None:
+            pix = pixel_indices.to(next(model.parameters()).device)
+        return pretrain_loss_and_metrics(model, batch, None, pix, cfg,
+                                         train=False)[1]
+
+    return eval_step
 
 
 def to_device(batch, device) -> Batch:

@@ -1,13 +1,16 @@
 """``create_logger``: an elapsed-time formatter with console (and optional
 file) handlers that dumps the run's arguments on creation (reference:
-utils/logger.py:9-58; a copy of medvill_tpu/utils/logging.py's)."""
+utils/logger.py:9-58; a copy of medvill_tpu/utils/logging.py's), and
+``watch_norms``, the pretrain CLI's ``--watch_interval`` summary."""
 from __future__ import annotations
 
 import logging
 import os
 import sys
 import time
-from typing import Any, Optional
+from typing import Any, Dict, List, Optional
+
+import torch
 
 
 class ElapsedFormatter(logging.Formatter):
@@ -44,3 +47,36 @@ def create_logger(filepath: Optional[str] = None,
         for k in sorted(d):
             logger.info("%s: %s", k, d[k])
     return logger
+
+
+def _norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of ``tensors`` in f32, on their device."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        [t.detach().float() for t in tensors])))
+
+
+def watch_norms(model: torch.nn.Module, tx=None) -> Dict[str, float]:
+    """The ``wandb.watch(model)`` stand-in of the JAX package
+    (medvill_tpu/utils/logging.py:128-173; reference
+    models/train_origin.py:51): ``watch/param_norm`` over every parameter
+    (a tied table once, frozen ones included), ``watch/param_norm/<name>``
+    per top-level module (``enc``, ``mlm``, ``itm`` in the pretrain layout)
+    and, with ``tx`` (the run's ``train.optim.Accumulate``),
+    ``watch/grad_ema_norm``, the norm of Adam's first moments (AdamW's
+    ``exp_avg``, BertAdam's ``m``; 0 before the first update).  One read
+    from the device; the CLI calls it off the hot path."""
+    params = dict(model.named_parameters())
+    norms = {"watch/param_norm": _norm(list(params.values()))}
+    for top in sorted({name.split(".")[0] for name in params}):
+        norms[f"watch/param_norm/{top}"] = _norm(
+            [p for name, p in params.items()
+             if name.split(".")[0] == top])
+    if tx is not None:
+        moments = [s[k] for s in tx.optimizer.state.values()
+                   for k in ("exp_avg", "m") if k in s]
+        # zero before the first update, as JAX's zero-initialized moments
+        norms["watch/grad_ema_norm"] = (
+            _norm(moments) if moments else torch.zeros(
+                (), device=norms["watch/param_norm"].device))
+    values = torch.stack(list(norms.values())).tolist()
+    return dict(zip(norms, values))

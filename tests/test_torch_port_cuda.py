@@ -908,3 +908,142 @@ def test_capturable_adamw_matches_the_adamw_formula(cuda_device):
         w = w - 1e-3 * (u + 0.01 * w)
     np.testing.assert_allclose(p.detach().cpu().double().numpy(), w,
                                rtol=0, atol=1e-6)
+
+
+def _snapshot(state, gen) -> dict:
+    """The training state as ``checkpoint.save_training_state`` stores it,
+    through torch.save and torch.load(weights_only=True)."""
+    import io
+
+    buf = io.BytesIO()
+    torch.save({"model": {k: v.detach().cpu() for k, v in
+                          state.model.state_dict().items()},
+                "tx": state.tx.state_dict(), "step": state.step,
+                "generator": gen.get_state()}, buf)
+    buf.seek(0)
+    return torch.load(buf, weights_only=True)
+
+
+def _restore(state, gen, snap) -> None:
+    state.model.load_state_dict(snap["model"])
+    state.tx.load_state_dict(snap["tx"])
+    state.step = snap["step"]
+    gen.set_state(snap["generator"])
+
+
+@pytest.mark.parametrize("kind", ["pretrain-adamw", "finetune-bertadam"])
+def test_restored_state_then_graphed_dispatch_equals_uninterrupted(
+        cuda_device, kind):
+    """A 2-layer model (f32, fused_ln), accumulation 2, dispatches of k = 3
+    (CUDA graphs): the state after the first dispatch (one micro-batch
+    accumulated: capturable AdamW's device step, or BertAdam's moments,
+    opt_step and device lr; the gradients summed so far) is saved and
+    restored (a) into the same state whose graphs are captured, in place,
+    and (b) into a fresh state and MultiStep; the second dispatch from each
+    equals the uninterrupted one's losses, parameters and BatchNorm
+    statistics within 1e-5 of their scale (bit-identical expected), and
+    (a) keeps every optimizer and gradient tensor it had."""
+    from medvill_torch.train import dispatch
+    from medvill_torch.train import finetune as tft
+    from medvill_torch.train import pretrain as tpre
+
+    if kind.startswith("pretrain"):
+        cfg = _tiny_pretrain()
+        batches = [_pretrain_batch(cuda_device, cfg, i) for i in range(6)]
+
+        def make():
+            return (tpre.init_state(cfg, seed=0, device=cuda_device),
+                    tpre.make_train_step(cfg))
+    else:
+        cfg = dataclasses.replace(_tiny_finetune(0.1),
+                                  gradient_accumulation_steps=2)
+        batches = [_finetune_batch(cuda_device, cfg, i) for i in range(6)]
+
+        def make():
+            return (tft.init_state(cfg, t_total=10, seed=0,
+                                   device=cuda_device),
+                    tft.make_train_step(cfg))
+    groups = [{k: torch.stack([b[k] for b in batches[i:i + 3]])
+               for k in batches[0]} for i in (0, 3)]
+
+    def second(state, multi, gen):
+        loss = multi(state, groups[1], gen)["loss"]
+        torch.cuda.synchronize()
+        return loss.clone(), {k: v.clone() for k, v in
+                              state.model.state_dict().items()}
+
+    state, step = make()
+    multi, gen = dispatch.MultiStep(step, 3), torch.Generator().manual_seed(1)
+    multi(state, groups[0], gen)
+    assert state.tx.count == 1
+    snap = _snapshot(state, gen)
+    want = second(state, multi, gen)
+    held = [t for s in state.tx.optimizer.state.values() for t in s.values()
+            if torch.is_tensor(t)] + [p.grad for p in
+                                      state.model.parameters()]
+    _restore(state, gen, snap)
+    assert all(a is b for a, b in zip(held, [
+        t for s in state.tx.optimizer.state.values() for t in s.values()
+        if torch.is_tensor(t)] + [p.grad for p in state.model.parameters()]))
+    in_place = second(state, multi, gen)
+    fresh, step = make()
+    gen = torch.Generator()
+    _restore(fresh, gen, snap)
+    if kind.startswith("pretrain"):
+        assert all(s["step"].is_cuda
+                   for s in fresh.tx.optimizer.state.values())
+    restored = second(fresh, dispatch.MultiStep(step, 3), gen)
+    for got in (in_place, restored):
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=0)
+        for name, t in want[1].items():
+            if t.is_floating_point():
+                torch.testing.assert_close(
+                    got[1][name], t, rtol=0,
+                    atol=1e-5 * t.abs().max().item(), msg=name)
+
+
+def test_cpu_written_optim_file_restores_on_card(cuda_device, tmp_path):
+    """A 2-layer pretrain run on the CPU (accumulation 2, 3 micro-steps)
+    saved with ``checkpoint.save_training_state``: the files restore into a
+    model on the card (capturable AdamW's step on the device, moments and
+    the accumulated gradients equal the CPU's), and 3 more micro-steps
+    there follow the CPU run's: losses within 1e-4 relative, every tensor
+    but the key biases within 1e-4 of its scale."""
+    from medvill_torch import checkpoint as ckpt
+    from medvill_torch.data.pretrain import BatchLoader
+    from medvill_torch.train import pretrain as tpre
+
+    cfg = _tiny_pretrain()
+    cpu = torch.device("cpu")
+    batches = [_pretrain_batch(cpu, cfg, i) for i in range(6)]
+    state, step = (tpre.init_state(cfg, seed=0, device=cpu),
+                   tpre.make_train_step(cfg))
+    gen = torch.Generator().manual_seed(1)
+    for b in batches[:3]:
+        step(state, b, gen)
+    ckpt.save_training_state(str(tmp_path), 0, state, gen,
+                             BatchLoader([], 1), in_epoch=True)
+    card = tpre.init_state(cfg, seed=5, device=cuda_device)
+    card_gen = torch.Generator()
+    ckpt.restore_training_state(str(tmp_path), 0, card, card_gen)
+    assert card.tx.count == 1 and card.step == 3
+    for p, q in zip(state.model.parameters(), card.model.parameters()):
+        assert q.is_cuda and torch.equal(p.detach(), q.detach().cpu())
+        if p.requires_grad:
+            assert torch.equal(p.grad, q.grad.cpu())
+            for k, v in state.tx.optimizer.state[p].items():
+                w = card.tx.optimizer.state[q][k]
+                assert w.is_cuda and torch.equal(v.float(), w.cpu())
+    for b in batches[3:]:
+        want = step(state, b, gen)["loss"]
+        got = step(card, {k: v.to(cuda_device) for k, v in b.items()},
+                   card_gen)["loss"]
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0)
+    for name, t in state.model.state_dict().items():
+        # a key bias's exact gradient is 0 (softmax ignores a shift shared
+        # by a row): Adam moves it by about lr on either device's rounding
+        if t.is_floating_point() and not name.endswith(
+                "attention.self.key.bias"):
+            torch.testing.assert_close(
+                card.model.state_dict()[name].cpu(), t, rtol=0,
+                atol=1e-4 * max(t.abs().max().item(), 1e-6), msg=name)
