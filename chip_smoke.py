@@ -211,10 +211,34 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    after that batch (within preempt.POLL_EVERY), model.0.bin is written
    and holds the in-memory weights.
 
+23. tokenizer: make_tokenizer (what the four training CLIs call) returns
+   the native wordpiece tokenizer (medvill_torch/data/native_tokenizer.py,
+   built by g++ in the build phase) with its library loaded; its ids equal
+   the Python tokenizer's on the 288 train reports, 32 of them upper-cased
+   with punctuation and the fallback cases (non-ASCII, a literal special
+   token, a NUL byte, an overflow of its buffer), with and without the
+   unused-token remap; host ms to tokenize the reports each way, and the
+   pretrain loader's host ms per batch of 36 (4 threads) with each, in
+   turns python, native, native, python.
+24. pretrain-vit: the ViT image encoder at full width (BERT-base, 512 px,
+   patch 32: 256 image tokens, seq_len 253, L = 512, BAR, batch 36,
+   accumulation 4): the pretrain CLI with --img_encoder ViT
+   --num_image_embeds 256 over the train records (8 micro-steps), eagerly
+   and at --steps_per_dispatch 4: finite losses, exactly 12 K1 and 12 K2
+   per micro-step (replays counted), no warning logged, the native
+   tokenizer in use, model.0.bin loading strictly with the patch
+   embedding; pairs/s, ms per micro-step, peak memory.  K1/K2 at that call
+   (B = 36, L = 512, BAR, img_block 258) against their plain versions in
+   f32 and bf16 at rates 0 and 0.1, the skipped tile pairs read back and
+   equal to the predicate, timed beside bound, plain and library; K3/K4 at
+   R = 36 x 512 = 18432 the same way; then the trainer with fused_ln on:
+   exactly 12/12/24/24 K1-K4 launches per micro-step, the loss falls, and
+   the steady ms per micro-step eager against graphed (k = 4) in turns.
+
 Then the line of kernels (each with its launches by path and, beside the
-training shape's figures, its figures at the finetune shape and K1/K2's at
-the classification and retrieval shapes, K1's at the scoring and the eval
-calls), and last
+training shape's figures, its figures at the finetune shape and the ViT
+pretrain shape (``vit_shape``), K1/K2's at the classification and
+retrieval shapes, K1's at the scoring and the eval calls), and last
 {"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
@@ -228,6 +252,7 @@ import logging
 import os
 import random
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -242,8 +267,8 @@ import torch.nn.functional as F
 
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
 from medvill_torch.cli import (classification_main, decode_main,
-                               finetune_main, pretrain_main, retrieval_main,
-                               serve_main)
+                               finetune_main, make_tokenizer, pretrain_main,
+                               retrieval_main, serve_main)
 from medvill_torch.config import (BertConfig, ImageEncoderConfig, MaskVariant,
                                   PretrainConfig)
 from medvill_torch.convert import (load_cnn_bert_checkpoint,
@@ -255,6 +280,7 @@ from medvill_torch.data.classification import (ClassificationDataset,
                                                get_labels_and_frequencies,
                                                pos_weights,
                                                synthetic_clf_records)
+from medvill_torch.data import native_tokenizer
 from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
                                          collate)
 from medvill_torch.data.retrieval import CXRRetrievalDataset, collate_pairs
@@ -318,6 +344,10 @@ BEAM = 4
 DECODE_BATCHES = -(-FT_RECORDS // BATCH)
 # the K4 instantiation of the training call (bf16, 3 chunks a lane at H 768)
 K4_MAIN = "fused_ln_bwd_kernel<3>[bf16]"
+# the ViT encoder at full width: patch 32 at 512 px gives 256 image tokens,
+# seq_len 253, so L = 256 + 253 + 3 = 512 (BAR, batch 36)
+VIT_N = (IMG // 32) ** 2
+VIT_L, VIT_IMG_BLOCK = VIT_N + 253 + 3, VIT_N + 2
 
 
 def emit(obj) -> None:
@@ -411,12 +441,25 @@ def read_counts() -> dict:
 
 
 def phase_build() -> dict:
-    """Builds both sources; ptxas' registers and spills per kernel (none in
-    the bf16 attention kernels and in any K4 instantiation).  Returns the
-    ptxas report."""
+    """Builds both sources and, beside them, the native wordpiece library
+    (g++); ptxas' registers and spills per kernel (none in the bf16
+    attention kernels and in any K4 instantiation).  Returns the ptxas
+    report."""
     t0 = time.perf_counter()
+    wordpiece: dict = {}
+
+    def build_wordpiece():
+        t = time.perf_counter()
+        wordpiece["path"] = native_tokenizer.build_library(force=True)
+        wordpiece["seconds"] = time.perf_counter() - t
+
+    g_plus = threading.Thread(target=build_wordpiece)
+    g_plus.start()   # g++ beside the nvcc processes
     report = build.compile_all()
+    g_plus.join()
     seconds = time.perf_counter() - t0
+    check(wordpiece["path"] is not None,
+          "the native wordpiece library did not build (g++)")
     ptxas = {name: build.ptxas_report(r["log"]) for name, r in report.items()}
     tc = {n: e for n, e in ptxas["flash_attention"].items()
           if "_tc_" in n}
@@ -430,7 +473,7 @@ def phase_build() -> dict:
         check(e["spill_stores"] == e["spill_loads"] == 0, f"{n} spills: {e}")
     emit({"phase": "build", "seconds": seconds,
           "kernels": {n: r["seconds"] for n, r in report.items()},
-          "ptxas": ptxas})
+          "wordpiece_seconds": wordpiece["seconds"], "ptxas": ptxas})
     return ptxas
 
 
@@ -3351,6 +3394,295 @@ def phase_preempt_clf(d: str, vocab: str, clf_data: str, device) -> None:
     torch.cuda.empty_cache()
 
 
+def _tokenizer_texts(data: str) -> list:
+    """The train records' reports, each also upper-cased with punctuation
+    (lower-casing and the punctuation split), and the cases of the
+    exact-fallback paths: non-ASCII text, a literal special token, a NUL
+    byte, more wordpieces than the library's buffer."""
+    with open(data) as f:
+        reports = [json.loads(line)["text"] for line in f]
+    edges = ["tok7 café tok9", "tok1 [SEP] tok2", "tok3\x00tok4",
+             "tok5 " * (native_tokenizer.NativeBertTokenizer.MAX_IDS + 8),
+             "a" * 150 + " tok6", ""]
+    return (reports + [r.upper().replace(" ", ", ", 3) + "." for r in
+                       reports[:32]] + edges)
+
+
+def _loader_ms(dataset, workers: int) -> float:
+    """Host ms per batch of PRE_B of ``BatchLoader`` over ``dataset``, the
+    pretrain CLI's worker threads, one epoch."""
+    loader = BatchLoader(dataset, PRE_B, shuffle=True, seed=SEED,
+                         workers=workers)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    seconds = time.perf_counter() - t0
+    loader.close()
+    return seconds / n * 1e3
+
+
+def phase_tokenizer(data: str, vocab: str) -> None:
+    """The native wordpiece tokenizer on this host: ``make_tokenizer`` (what
+    the pretrain, finetune, classification and retrieval CLIs call)
+    returns it with its library loaded; its ids equal the Python
+    tokenizer's on every report of the train records, on 32 of them
+    upper-cased with punctuation and on the fallback cases, with and
+    without the unused-token remap; the host ms of tokenizing the 288
+    reports both ways; then the pretrain loader's host ms per batch of 36
+    (4 threads: PNG decode, tokenization, masking) with each tokenizer, in
+    turns python, native, native, python."""
+    texts = _tokenizer_texts(data)
+    for remap in (False, True):
+        native = make_tokenizer(vocab, remap_unused=remap)
+        check(isinstance(native, native_tokenizer.NativeBertTokenizer)
+              and native.native_available,
+              "make_tokenizer did not return the native tokenizer")
+        python = BertTokenizer.from_vocab_file(vocab, remap_unused=remap)
+        for t in texts:
+            check(native.tokenize_to_ids(t) == python.tokenize_to_ids(t),
+                  f"native ids differ from Python's on {t[:60]!r}")
+    reports = texts[:TRAIN_RECORDS]
+    times = {}
+    for name, tok in (("python", python), ("native", native)):
+        t0 = time.perf_counter()
+        for t in reports:
+            tok.tokenize_to_ids(t)
+        times[name] = (time.perf_counter() - t0) * 1e3
+    cfg = PretrainConfig()
+    loaders = {name: [] for name in ("python", "native")}
+    for name in ("python", "native", "native", "python"):
+        tok = (BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+               if name == "python" else make_tokenizer(vocab))
+        loaders[name].append(_loader_ms(
+            CXRPretrainDataset(data, tok, cfg, seed=SEED), cfg.num_workers))
+    emit({"phase": "tokenizer", "native_available": True,
+          "texts_checked": 2 * len(texts),
+          "reports": len(reports),
+          "tokenize_ms": times,
+          "tokenize_speedup": times["python"] / times["native"],
+          "loader_workers": cfg.num_workers,
+          "loader_ms_per_batch": loaders,
+          "loader_batch": PRE_B})
+
+
+def _vit_shape_attn(device, gen) -> dict:
+    """K1/K2 at the ViT pretrain call (B = 36, L = 256 + 253 + 3 = 512,
+    BAR, img_block 258, text lengths 1..254) against their plain versions
+    in f32 and bf16 at rates 0 and 0.1 (_attn_errs); the skipped tile
+    pairs read back from the kernels and equal to the predicate; timed at
+    the training call (bf16, rate 0.1; _attn_times).  Returns the
+    kernels-line entries."""
+    bar = int(MaskVariant.BAR)
+    worst: dict = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for rate in (0.0, 0.1):
+            q, k, v, do, spec = _attn_inputs(
+                device, gen, PRE_B, VIT_L, VIT_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+                bar, dtype)
+            kw = dict(img_block=VIT_IMG_BLOCK, l_real=VIT_L,
+                      family=fa.FAMILY_PRETRAIN, rate=rate, seed=12)
+            errs, tol = _attn_errs(q, k, v, do, spec, kw,
+                                   f"vit shape {dtype} rate {rate}")
+            _worst(worst, f"{str(dtype)[6:]}/rate{rate}", errs, tol)
+            del q, k, v, do
+    q, k, v, do, spec = _attn_inputs(device, gen, PRE_B, VIT_L,
+                                     VIT_IMG_BLOCK, fa.FAMILY_PRETRAIN, bar,
+                                     torch.bfloat16)
+    kw = dict(img_block=VIT_IMG_BLOCK, l_real=VIT_L,
+              family=fa.FAMILY_PRETRAIN, rate=0.1, seed=13)
+    errs, _ = _attn_errs(q, k, v, do, spec, kw, "vit shape timed call")
+    want = masks.tile_skip_grid(fa.FAMILY_PRETRAIN, spec, VIT_IMG_BLOCK,
+                                VIT_L, VIT_L, fa.TILE)[:, None].to(device)
+    read = fa.skipped_tiles(q, k, v, do, spec, img_block=VIT_IMG_BLOCK,
+                            l_real=VIT_L, family=fa.FAMILY_PRETRAIN)
+    for name, got in read.items():
+        check(torch.equal(got, want.expand_as(got)),
+              f"vit shape: {name} kernel skipped {int(got.sum())} tile "
+              f"pairs, the predicate {int(want.sum()) * HEADS}")
+    skipped = read["fwd"].float().mean().item()
+    t = _attn_times(q, k, v, do, spec, kw)
+    emit({"phase": "pretrain-vit", "timed": f"K1/K2 B={PRE_B} L={VIT_L} "
+                                            "12x64 bf16 BAR rate 0.1", **t,
+          "cases": 4, "max_abs_err": worst, "skipped_tile_pairs": skipped,
+          "skips_read_back_equal_predicate": True})
+    g_err = max(errs[n] for n in ("dq", "dk", "dv"))
+    return {kid: {"max_abs_err": err, "ms": t[f"{n}_ms"],
+                  "plain_ms": t[f"{n}_plain_ms"],
+                  "bound_ms": t[f"{n}_bound_ms"],
+                  "bound_by": t[f"{n}_bound_by"],
+                  "library_ms": t[f"{n}_library_ms"],
+                  "skipped_tile_pairs": skipped}
+            for kid, n, err in (("K1", "k1", errs["o"]),
+                                ("K2", "k2", g_err))}
+
+
+def _vit_shape_ln(device, gen) -> dict:
+    """K3/K4 at the ViT pretrain call (R = 36 x 512 = 18432, H 768, LN eps
+    1e-12) against their plain versions (K4 also against autograd) in f32
+    at rate 0 and bf16 at rate 0.1, timed at the latter (_ln_times).
+    Returns the kernels-line entries."""
+    rows = PRE_B * VIT_L
+    for dtype, rate in ((torch.float32, 0.0), (torch.bfloat16, 0.1)):
+        x, res, gamma, beta, dy = _ln_inputs(device, gen, rows, H, dtype)
+        kw = dict(rate=rate, eps=1e-12, seed=80)
+        what = f"vit shape {str(dtype)[6:]} rate {rate}"
+        errs = _k4_errs(x, res, gamma, beta, dy, kw, what)
+        y_want = fused_ln.fused_dropout_add_ln_plain(x, res, gamma, beta,
+                                                     **kw)
+        errs["k3_y"] = max_err(
+            fused_ln.fused_ln_fwd(x, res, gamma, beta, **kw), y_want,
+            1e-5 if dtype == torch.float32 else bf16_tol(y_want),
+            f"K3 {what}")
+    t = _ln_times(x, res, gamma, beta, dy, kw)
+    emit({"phase": "pretrain-vit", "timed": f"K3/K4 R={rows} H={H} bf16 "
+                                            "rate 0.1", "rows": rows,
+          "max_abs_err": errs, **t})
+    return {kid: {"max_abs_err": err, "ms": t[f"{n}_ms"],
+                  "plain_ms": t[f"{n}_plain_ms"],
+                  "bound_ms": t[f"{n}_bound_ms"],
+                  "bound_by": t[f"{n}_bound_by"],
+                  "library_ms": t[f"{n}_library_ms"], "rows": rows}
+            for kid, n, err in (("K3", "k3", errs["k3_y"]),
+                                ("K4", "k4", max(errs["dx"],
+                                                 errs["dres"])))}
+
+
+class _Warnings(logging.Handler):
+    """The warnings the port logs (the ``medvill_torch`` logger), read from
+    the root logger."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages: list = []
+
+    def emit(self, record) -> None:
+        if record.name.startswith("medvill_torch"):
+            self.messages.append(record.getMessage())
+
+
+def _vit_argv(out: str, data: str, vocab: str, k: int) -> list:
+    """The pretrain CLI's arguments under ``--img_encoder ViT
+    --num_image_embeds 256``, else its defaults: one epoch of the train
+    records at ``--steps_per_dispatch k``."""
+    return ["--train_dataset", data, "--vocab_file", vocab,
+            "--output_path", out, "--epochs", "1", "--device", "cuda",
+            "--img_encoder", "ViT", "--num_image_embeds", str(VIT_N),
+            "--steps_per_dispatch", str(k), "--log_freq", "4"]
+
+
+def _vit_cli(d: str, data: str, vocab: str, k: int) -> tuple:
+    """The pretrain CLI at ``_vit_argv``: (its epoch row, launches, peak
+    GiB, the warnings it logged, the tokenizer it built)."""
+    out = os.path.join(d, f"pretrain_vit_k{k}")
+    argv = _vit_argv(out, data, vocab, k)
+    built = []
+    real = pretrain_main.make_tokenizer
+
+    def make(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    warnings = _Warnings()
+    logging.getLogger().addHandler(warnings)
+    pretrain_main.make_tokenizer = make
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        rows = pretrain_main.main(argv)
+    finally:
+        pretrain_main.make_tokenizer = real
+        logging.getLogger().removeHandler(warnings)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row = rows[0]
+    check(row["micro_steps"] == MICRO_STEPS, f"vit k={k} micro steps {row}")
+    check(all(np.isfinite(row[n]) for n in ("avg_loss", "avg_mlm_loss",
+                                             "avg_itm_loss")),
+          f"vit k={k}: non-finite losses {row}")
+    model = pretrain_lib.build_model(pretrain_main.config_from_args(
+        pretrain_main.build_parser().parse_args(argv)))
+    check(load_cxrbert_checkpoint(model, os.path.join(out, "model.0.bin"))
+          == [], f"vit k={k}: model.0.bin does not load strictly")
+    check("enc.img_encoder.patch_to_embedding.weight" in model.state_dict(),
+          "the ViT model has no patch embedding")
+    shutil.rmtree(out)
+    return row, counts, peak, warnings.messages, built
+
+
+def phase_pretrain_vit(d: str, data: str, vocab: str, device) -> tuple:
+    """The ViT image encoder at full width (BERT-base, 512 px, patch 32, so
+    256 image tokens, seq_len 253, L = 512, BAR, batch 36, accumulation
+    4): the pretrain CLI's entry point with --img_encoder ViT
+    --num_image_embeds 256 over the train records (8 micro-steps), eagerly
+    and at --steps_per_dispatch 4 (two graphed dispatches): finite losses,
+    exactly 12 K1 and 12 K2 launches per micro-step (replays counted), no
+    warning logged (no frozen trunk), the native tokenizer built with its
+    library loaded, model.0.bin loading strictly with the patch embedding;
+    pairs/s, ms per micro-step and peak memory.  Then K1/K2 at the call
+    (_vit_shape_attn) and K3/K4 at R = 18432 (_vit_shape_ln); then the
+    trainer with fused_ln on, 4 micro-steps on one repeated batch at
+    accumulation 1 from generators of one seed: exactly 12/12/24/24 K1-K4
+    launches per micro-step, the loss falls; and the steady ms per
+    micro-step on a resident batch at the CLI's accumulation of 4, eager
+    against graphed (k = 4) in turns (_graph_timing).  Returns (the CLI
+    runs' launches, the trainer's, the kernels-line
+    entries)."""
+    t_phase = time.perf_counter()
+    cli = {}
+    cli_counts = {n: 0 for n in ("K1", "K2", "K3", "K4")}
+    for k in (1, 4):
+        row, counts, peak, warnings, built = _vit_cli(d, data, vocab, k)
+        want = {"K1": 12 * MICRO_STEPS, "K2": 12 * MICRO_STEPS, "K3": 0,
+                "K4": 0}
+        check(counts == want, f"vit k={k} launches {counts} != {want}")
+        check(warnings == [], f"vit k={k} logged warnings: {warnings}")
+        check(len(built) == 1 and isinstance(
+            built[0], native_tokenizer.NativeBertTokenizer)
+            and built[0].native_available,
+            f"vit k={k}: the CLI did not build the native tokenizer")
+        for n, c in counts.items():
+            cli_counts[n] += c
+        cli[f"k{k}"] = {
+            "pairs_per_s": row["pairs_per_s"],
+            "ms_per_micro_step": row["epoch_time_s"] / MICRO_STEPS * 1e3,
+            "epoch_s": row["epoch_time_s"], "peak_mem_gib": peak,
+            "avg_loss": row["avg_loss"], "launches": counts}
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    entries = _vit_shape_attn(device, gen)
+    entries.update(_vit_shape_ln(device, gen))
+    cfg = pretrain_main.config_from_args(pretrain_main.build_parser(
+        ).parse_args(_vit_argv(d, data, vocab, 1)))
+    cfg = dataclasses.replace(
+        cfg, bert=dataclasses.replace(cfg.bert, fused_ln=True),
+        gradient_accumulation_steps=1)
+    batch = _train_batch(data, vocab, cfg, device, PRE_B)
+    check(tuple(batch["txt_labels"].shape) == (PRE_B, VIT_L),
+          f"vit batch shape {tuple(batch['txt_labels'].shape)}")
+    state = pretrain_lib.init_state(cfg, seed=SEED, device=device)
+    step = pretrain_lib.make_train_step(cfg)
+    reset_counts()
+    losses = [step(state, batch, torch.Generator().manual_seed(SEED))
+              ["loss"].item() for _ in range(4)]
+    fused_counts = read_counts()
+    del state
+    want = {n: c * 4 for n, c in KERNEL_COUNTS.items()}
+    check(fused_counts == want,
+          f"vit fused launches {fused_counts} != {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"vit fused loss did not fall: {losses}")
+    c4 = dataclasses.replace(cfg, gradient_accumulation_steps=4)
+    timing = _graph_timing(
+        lambda: pretrain_lib.init_state(c4, seed=SEED, device=device),
+        lambda: pretrain_lib.make_train_step(c4), batch, 4, profile=False)
+    emit({"phase": "pretrain-vit", "batch": PRE_B, "seq": VIT_L,
+          "image_tokens": VIT_N, "micro_steps": MICRO_STEPS, "cli": cli,
+          "native_tokenizer": True, "fused_losses": losses,
+          "fused_launches_per_micro_step": {
+              n: c / 4 for n, c in fused_counts.items()},
+          "steady_fused": timing,
+          "seconds": time.perf_counter() - t_phase})
+    return cli_counts, fused_counts, entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -3394,6 +3726,9 @@ def main() -> int:
         resume_counts, eval_k1 = phase_resume(d, data, vocab, device)
         resume_ft_counts = phase_resume_ft(ft_argv, d, device)
         phase_preempt_clf(d, vocab, os.path.join(d, "clf_data"), device)
+        phase_tokenizer(data, vocab)
+        vit_counts, vit_fused_counts, vit_entries = phase_pretrain_vit(
+            d, data, vocab, device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
              "train-fused": fused_counts, "finetune": finetune_counts,
              "decode": decode_counts, "classify": classify_counts,
@@ -3401,7 +3736,9 @@ def main() -> int:
              "retrieve": {k: retrieve_counts[k] for k in ("K1", "K2")},
              "finetune-graphs": graph_counts,
              "resume": {k: resume_counts[k] for k in ("K1", "K2")},
-             "resume-ft": resume_ft_counts}
+             "resume-ft": resume_ft_counts,
+             "pretrain-vit": {k: vit_counts[k] for k in ("K1", "K2")},
+             "pretrain-vit-fused": vit_fused_counts}
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",
@@ -3420,6 +3757,8 @@ def main() -> int:
                         "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **entries[kid]})
     kernels[0]["eval_shape"] = eval_k1
+    for entry in kernels:
+        entry["vit_shape"] = vit_entries[entry["id"]]
     for key, shape in (("serve_shape", "prefill"),
                        ("beam_window_shape", "beam-window")):
         rec = k3_shapes[shape]

@@ -23,6 +23,10 @@ core/torch_init.py:230-296) and of the classification CLI's
   the model shares;
 - ``restore_pretrained``: a ``--load_pretrained_model``-style path into a
   model through a ``torch_init`` loader (core/checkpoint.py:147-190);
+- ``trained_here``: whether a ``model.<N>.bin`` comes with this port's
+  ``optim.<N>.bin``, i.e. was trained by this port's train forward (the
+  decode and serve CLIs then decode in its position layout, as JAX's do
+  for its own orbax checkpoints);
 - ``save_training_state`` / ``restore_training_state`` / ``latest_epoch``:
   the whole training state of the pretrain and finetune CLIs
   (core/checkpoint.py:74-127,193-205; the reference's resume scan,
@@ -39,6 +43,7 @@ core/torch_init.py:230-296) and of the classification CLI's
 from __future__ import annotations
 
 import os
+import pickle
 import re
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -244,6 +249,25 @@ def save_training_state(directory: str, epoch: int, state, generator,
     os.replace(model_tmp, model_path)
     os.replace(optim_tmp, optim_path)
     return model_path, optim_path
+
+
+def trained_here(model_path: str) -> bool:
+    """Whether ``model_path`` (``<dir>/model.<N>.bin``) was written by this
+    port's training CLIs: ``optim.<N>.bin`` beside it holds this port's
+    training state (``save_training_state``: a ``tx`` and a ``loader``
+    entry), which no reference optimizer file has.  Read memory-mapped, so
+    the tensors are not loaded."""
+    m = re.fullmatch(r"model\.(\d+)\.bin", os.path.basename(model_path))
+    if m is None:
+        return False
+    optim = os.path.join(os.path.dirname(model_path),
+                         f"optim.{m.group(1)}.bin")
+    try:
+        saved = torch.load(optim, map_location="cpu", weights_only=True,
+                           mmap=True)
+    except (OSError, RuntimeError, pickle.UnpicklingError):
+        return False
+    return isinstance(saved, dict) and {"tx", "loader"} <= set(saved)
 
 
 def latest_epoch(directory: str) -> Optional[int]:

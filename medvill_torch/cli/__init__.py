@@ -4,6 +4,48 @@ The entry points, each ``python -m medvill_torch.cli.<name>``:
 ``serve_main``, ``pretrain_main``, ``finetune_main``, ``decode_main``,
 ``classification_main`` and ``retrieval_main``.
 """
+import logging
+
+from medvill_torch.data.native_tokenizer import NativeBertTokenizer
+from medvill_torch.data.tokenization import BertTokenizer
+
+
+def make_tokenizer(vocab_file: str, remap_unused: bool = False):
+    """The native-backed tokenizer (``data/native_tokenizer.py``) where its
+    library builds and loads, else, with a warning, the Python tokenizer:
+    the same ids either way (medvill_tpu/cli/pretrain_main.py:38-48).  The
+    pretrain, finetune, classification and retrieval CLIs build theirs
+    here, with JAX's ``remap_unused``: False, True, False, False."""
+    tokenizer = NativeBertTokenizer(vocab_file, remap_unused=remap_unused)
+    if tokenizer.native_available:
+        return tokenizer
+    logging.getLogger("medvill_torch").warning(
+        "the native wordpiece library did not build or load (g++ -> "
+        "medvill_torch/ops/_build/): tokenizing in Python, the same ids, "
+        "slower")
+    return BertTokenizer.from_vocab_file(vocab_file,
+                                         remap_unused=remap_unused)
+
+
+def window_positions(mode: str, model_path, logger=None) -> str:
+    """``--decode_positions``, with ``auto`` resolved from the checkpoint's
+    provenance, as the JAX decode and serve CLIs resolve it
+    (medvill_tpu/cli/decode_main.py:201-215): a torch checkpoint finetuned
+    by the reference decodes every window at positions 0/1 as the
+    reference decoder does ("reference"); one finetuned by this port
+    (``checkpoint.trained_here``: the JAX CLIs' orbax case) and the random
+    init (no ``model_path``) take the train forward's layout ("train")."""
+    if mode != "auto":
+        return mode
+    from medvill_torch.checkpoint import trained_here
+
+    kind = ("random-init" if model_path is None
+            else "medvill_torch" if trained_here(model_path) else "torch")
+    mode = "reference" if kind == "torch" else "train"
+    if logger is not None:
+        logger.info("decode_positions auto -> %s (checkpoint kind: %s)",
+                    mode, kind)
+    return mode
 
 
 def str2bool(v):

@@ -63,7 +63,7 @@ import torch
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import (latest_pretrain_file,
                                       merge_pretrained_into_mmbt)
-from medvill_torch.cli import collect_metrics, str2bool
+from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
 from medvill_torch.config import (BertConfig, ClassificationConfig,
                                   ImageEncoderConfig)
 from medvill_torch.convert import load_mmbt_checkpoint
@@ -71,7 +71,6 @@ from medvill_torch.data.classification import (ClassificationDataset,
                                                get_labels_and_frequencies,
                                                pos_weights)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
-from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train import classify
 from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.utils import preempt
@@ -199,8 +198,7 @@ def train(args) -> dict:
     savedir = os.path.join(args.savedir, args.save_name)
     os.makedirs(savedir, exist_ok=True)
     logger = create_logger(os.path.join(savedir, "logfile.log"), args)
-    tokenizer = BertTokenizer.from_vocab_file(args.vocab_file,
-                                              remap_unused=False)
+    tokenizer = make_tokenizer(args.vocab_file, remap_unused=False)
     train_path = os.path.join(args.data_path, args.Train_dset_name)
     labels, freqs = get_labels_and_frequencies(train_path)
     cfg = config_from_args(args, labels)

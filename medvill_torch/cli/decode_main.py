@@ -50,7 +50,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from medvill_torch.cli import sampling_kwargs, serve_main, str2bool
+from medvill_torch.cli import (sampling_kwargs, serve_main, str2bool,
+                               window_positions)
 from medvill_torch.data import images as image_lib
 from medvill_torch.data.seq2seq import Seq2seqDecodePreprocessor
 from medvill_torch.data.tokenization import BertTokenizer, caption_from_ids
@@ -101,9 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode_positions", type=str, default="auto",
                    choices=["auto", "reference", "train", "global"],
                    help="text-window position ids: auto = reference for a "
-                        "torch checkpoint (what the reference decoder "
-                        "executes: each window at positions 0/1), train "
-                        "for the random init; see DecodeSettings")
+                        "torch checkpoint of the reference (what its "
+                        "decoder executes: each window at positions 0/1), "
+                        "train for one this port trained (an optim.<N>.bin "
+                        "of its training state beside it) and for the "
+                        "random init; see DecodeSettings")
     p.add_argument("--len_vis_input", type=int, default=256)
     p.add_argument("--img_size", type=int, default=512)
     p.add_argument("--max_seq_length", type=int, default=None,
@@ -167,21 +170,6 @@ class _Best:
                 "best_bleu3": max(self.c), "best_bleu4": max(self.d)}
 
 
-def _resolve_positions(args, ckpt_kind, logger) -> str:
-    """'auto' follows the checkpoint: a torch checkpoint was finetuned by
-    the reference, whose decoder embeds every window at positions 0/1
-    (model.py:1113-1121); the random init takes the train-consistent
-    layout, as the JAX CLI gives it."""
-    mode = args.decode_positions
-    if mode != "auto":
-        return mode
-    mode = "reference" if ckpt_kind == "torch" else "train"
-    if logger is not None:
-        logger.info("decode_positions auto -> %s (checkpoint kind: %s)",
-                    mode, ckpt_kind or "random-init")
-    return mode
-
-
 def model_config(args):
     """The FinetuneConfig the flags describe (the serve CLI's, plus
     ``--max_position_embeddings``)."""
@@ -207,7 +195,7 @@ def _recover(cfg, model_path: Optional[str], seed: int, device,
 
 
 def _decode_records(args, cfg, model, tokenizer, records, data_dir, logger,
-                    ckpt_kind=None, device="cpu",
+                    model_path=None, device="cpu",
                     generator: Optional[torch.Generator] = None):
     """One decode pass over ``records``: returns (predictions, ppl or None,
     decoder seconds, batches)."""
@@ -223,7 +211,8 @@ def _decode_records(args, cfg, model, tokenizer, records, data_dir, logger,
         forbid_duplicate_ngrams=args.forbid_duplicate_ngrams,
         ngram_size=args.ngram_size, new_segment_ids=args.new_segment_ids,
         min_len=int(args.min_len or 0), forbid_ignore_ids=forbid_ignore_ids,
-        window_positions=_resolve_positions(args, ckpt_kind, logger),
+        window_positions=window_positions(args.decode_positions, model_path,
+                                          logger),
         **sampling)
 
     def image_loader(p):
@@ -299,7 +288,6 @@ def run_one(args, logger, metrics_path: str, best: _Best, device,
     results = []
     for model_path in paths:
         model = _recover(cfg, model_path, args.seed, device, logger)
-        ckpt_kind = None if model_path is None else "torch"
         for bootstrap in range(1, args.random_bootstrap_testnum + 1):
             if args.bootstrap_resample:
                 # one random.choice per example, with replacement
@@ -310,7 +298,7 @@ def run_one(args, logger, metrics_path: str, best: _Best, device,
                 records = all_records
             predictions, ppl, decode_s, batches = _decode_records(
                 args, cfg, model, tokenizer, records, data_dir, logger,
-                ckpt_kind=ckpt_kind, device=device, generator=generator)
+                model_path=model_path, device=device, generator=generator)
             if args.beam_size == 1 and ppl is not None:
                 run_name = (f"{round(ppl, 2)}ppl_{dataset or 'cxr'}_"
                             f"{model_name or args.run_name}_{bootstrap}test")

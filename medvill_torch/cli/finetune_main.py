@@ -60,12 +60,11 @@ import torch
 from medvill_torch import checkpoint as ckpt
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
-from medvill_torch.cli import collect_metrics, str2bool
+from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
 from medvill_torch.config import (BertConfig, FinetuneConfig,
                                   ImageEncoderConfig)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
 from medvill_torch.data.seq2seq import Img2TxtDataset
-from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.data.vqa import VQADataset
 from medvill_torch.train import finetune as ft
 from medvill_torch.train.dispatch import MultiStep
@@ -259,8 +258,7 @@ def train(args) -> dict:
     logger = create_logger(os.path.join(cfg.output_dir, args.log_file), args)
     with open(os.path.join(cfg.output_dir, "opt.json"), "w") as f:
         json.dump(vars(args), f, indent=2)
-    tokenizer = BertTokenizer.from_vocab_file(args.vocab_file,
-                                              remap_unused=True)
+    tokenizer = make_tokenizer(args.vocab_file, remap_unused=True)
     if cfg.task == "vqa":
         ds = VQADataset(cfg, tokenizer, args.src_file, split="train",
                         image_root=args.image_root, seed=cfg.seed)

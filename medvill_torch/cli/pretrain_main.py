@@ -42,10 +42,15 @@ marker (before ``--pre_trained_model_path``), skips the trained batches
 (``BatchLoader.skip_next``) and continues bit for bit as the run that was
 not stopped.
 
+``--img_encoder ViT`` replaces the ResNet trunk by the patch embedding
+(``models/joint.py``, patch 32; ``--num_image_embeds`` must be the patch
+count, 256 at 512 px): nothing is frozen and no pixels are drawn, and
+``--resnet_init_path`` raises, as in the JAX CLI.
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without one.  Not ported (ROADMAP.md): the mesh/parallelism flags (and
-with them ``global_any``, the hosts' agreement to stop), the ViT encoder
-and an orbax directory as ``--pre_trained_model_path``
+with them ``global_any``, the hosts' agreement to stop) and an orbax
+directory as ``--pre_trained_model_path``
 (``medvill_tpu.cli.export_main`` converts one); argparse rejects them like
 any unknown flag.
 """
@@ -61,13 +66,12 @@ import torch
 
 from medvill_torch import checkpoint as ckpt
 from medvill_torch import torch_init
-from medvill_torch.cli import collect_metrics, str2bool
+from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   PretrainConfig)
 from medvill_torch.convert import load_cxrbert_checkpoint
 from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
                                          dispatch_loader)
-from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.train.pretrain import (init_state, make_eval_step,
                                           make_train_step, to_device)
@@ -133,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_seq_len", type=int, default=512)
     p.add_argument("--img_hidden_sz", type=int, default=2048)
     p.add_argument("--img_encoder", type=str, default="random-pixel",
-                   choices=["random-pixel", "full-fiber"])
+                   choices=["random-pixel", "full-fiber", "ViT"])
     p.add_argument("--img_channel", type=int, default=3)
     p.add_argument("--num_image_embeds", type=int, default=180)
     p.add_argument("--img_size", type=int, default=512)
@@ -245,10 +249,11 @@ def _initialize(args, cfg: PretrainConfig, state, generator,
                 "nor a run directory with model.<N>.bin and optim.<N>.bin")
         ckpt.restore_training_state(path, epoch, state, generator)
         logger.info("restored %s epoch %d", path, epoch)
-    if cfg.image.freeze_prefix_stages and not args.resnet_init_path \
-            and not restored:
+    if cfg.image.freeze_prefix_stages and cfg.image.encoder != "ViT" \
+            and not args.resnet_init_path and not restored:
         # the reference freezes an ImageNet trunk (image.py:50); the
-        # checkpoint, when restored, holds the trunk too
+        # checkpoint, when restored, holds the trunk too; a ViT model has
+        # no trunk
         logger.warning(
             "the ResNet trunk is frozen (reference semantics) and randomly "
             "initialized: pass --resnet_init_path with torchvision "
@@ -322,8 +327,7 @@ def train(args) -> List[dict]:
     os.makedirs(cfg.output_path, exist_ok=True)
     logger = create_logger(os.path.join(cfg.output_path, "train.log"), args)
 
-    tokenizer = BertTokenizer.from_vocab_file(args.vocab_file,
-                                              remap_unused=False)
+    tokenizer = make_tokenizer(args.vocab_file, remap_unused=False)
     dataset = CXRPretrainDataset(cfg.train_dataset, tokenizer, cfg,
                                  seed=cfg.seed)
     loader = BatchLoader(dataset, cfg.batch_size, shuffle=True,

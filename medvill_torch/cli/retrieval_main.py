@@ -58,12 +58,11 @@ import torch
 
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import restore_pretrained
-from medvill_torch.cli import collect_metrics, str2bool
+from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   RetrievalConfig)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
 from medvill_torch.data.retrieval import CXRRetrievalDataset, collate_pairs
-from medvill_torch.data.tokenization import BertTokenizer
 from medvill_torch.train import retrieve
 from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.utils import preempt
@@ -165,8 +164,7 @@ def train(args) -> dict:
     cfg = config_from_args(args)
     os.makedirs(cfg.output_path, exist_ok=True)
     logger = create_logger(os.path.join(cfg.output_path, "train.log"), args)
-    tokenizer = BertTokenizer.from_vocab_file(args.vocab_file,
-                                              remap_unused=False)
+    tokenizer = make_tokenizer(args.vocab_file, remap_unused=False)
     cxr_bert = bool(args.CXRBERT)
     state = retrieve.init_state(cfg, cxr_bert=cxr_bert, device=device)
     loaded = None

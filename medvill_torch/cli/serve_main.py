@@ -41,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from medvill_torch.cli import sampling_kwargs, str2bool
+from medvill_torch.cli import sampling_kwargs, str2bool, window_positions
 from medvill_torch.config import BertConfig, FinetuneConfig, ImageEncoderConfig
 from medvill_torch.convert import load_vlp_checkpoint
 from medvill_torch.data import images as image_lib
@@ -94,9 +94,11 @@ def build_parser():
     p.add_argument("--relax_projection", action="store_true")
     p.add_argument("--decode_positions", type=str, default="auto",
                    choices=["auto", "reference", "train", "global"],
-                   help="auto = reference: torch checkpoints were trained "
-                        "by the reference, whose decoder embeds each window "
-                        "at positions 0/1")
+                   help="auto: reference for a checkpoint the reference "
+                        "trained (its decoder embeds each window at "
+                        "positions 0/1), train for one this port trained "
+                        "(an optim.<N>.bin of its training state beside "
+                        "it)")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--warmup", type=str2bool, default=True,
                    help="run one dummy batch before accepting requests")
@@ -153,10 +155,8 @@ def build_engine(args, logger):
     logger.info("recovered torch checkpoint %s on %s",
                 args.model_recover_path, device)
 
-    positions = args.decode_positions
-    if positions == "auto":
-        positions = "reference"
-        logger.info("decode_positions auto -> reference (torch checkpoint)")
+    positions = window_positions(args.decode_positions,
+                                 args.model_recover_path, logger)
     v = tokenizer.vocab
     settings = DecodeSettings(
         max_txt_length=args.max_txt_length, mask_word_id=v["[MASK]"],

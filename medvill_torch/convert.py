@@ -11,7 +11,10 @@
 - ``cxrbert_state_dict_from_flax(params, batch_stats)``: the JAX
   package's CXRBERT pretrain tree -> the reference pretrain layout
   (``enc.* mlm.predictions.* itm.linear.*``), a jax-free copy of
-  ``export_cxrbert_state_dict`` (core/torch_export.py:143-194).
+  ``export_cxrbert_state_dict`` (core/torch_export.py:143-194) that also
+  carries a ViT model's ``enc.img_encoder.patch_to_embedding.*``, which
+  the JAX export drops (it exports the image encoder only when it has
+  ``conv1``).
 - ``mmbt_state_dict_from_flax(params, batch_stats)``: the JAX package's
   MMBT classification tree -> the reference MMBT layout (``enc.*
   clf.*``), a jax-free copy of ``export_mmbt_state_dict``
@@ -169,8 +172,13 @@ def cxrbert_state_dict_from_flax(params: Mapping, batch_stats: Mapping
     enc = params["enc"]
     _embeddings(out, "enc.txt_embeddings", enc["embeddings"])
     _lin(out, "enc.img_embeddings.img_embeddings", enc["img_projection"])
-    _trunk(out, "enc.img_encoder", enc["img_encoder"],
-           batch_stats["enc"]["img_encoder"])
+    if "patch_to_embedding" in enc["img_encoder"]:
+        # the ViT encoder, which export_cxrbert_state_dict drops
+        _lin(out, "enc.img_encoder.patch_to_embedding",
+             enc["img_encoder"]["patch_to_embedding"])
+    else:
+        _trunk(out, "enc.img_encoder", enc["img_encoder"],
+               batch_stats["enc"]["img_encoder"])
     _encoder(out, "enc.encoder", enc["encoder"])
     if "pooler" in enc:  # a model built for NONCROSS only has none
         _lin(out, "enc.pooler.dense", enc["pooler"]["dense"])

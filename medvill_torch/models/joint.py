@@ -16,11 +16,16 @@ JAX package's ``JointEncoder``, medvill_tpu/models/joint.py:56-185).
 - A frozen trunk (``ImageEncoderConfig.freeze_prefix_stages``, the
   reference's whole-trunk freeze) runs under ``torch.no_grad()``; in
   training its BatchNorm statistics still update (models/resnet.py).
+- The ViT encoder (``encoder="ViT"``) replaces the trunk by
+  ``ImagePatchEmbedding``: p x p patches, each projected to
+  ``img_hidden_size``; its tokens take positions ``arange(M)``, draw no
+  pixels and are never frozen.
 
 Parameter names follow ``export_cxrbert_state_dict``'s ``enc.*`` layout:
 ``txt_embeddings.*``, ``img_embeddings.img_embeddings.*``,
-``img_encoder.model.*``, ``encoder.layer.*``, ``pooler.*``.  The ViT and
-pooled image encoders are not ported.
+``img_encoder.model.*`` (ViT: ``img_encoder.patch_to_embedding.*``),
+``encoder.layer.*``, ``pooler.*``.  The pooled image encoders run in the
+classification model only (models/mmbt.py).
 """
 from __future__ import annotations
 
@@ -34,10 +39,35 @@ from medvill_torch.config import BertConfig, ImageEncoderConfig
 from medvill_torch.data.masks import MaskGeometry, bias_from_spec
 from medvill_torch.models.bert import (BertEmbeddings, BertEncoder,
                                        BertPooler, compute_dtype, dense)
-from medvill_torch.models.resnet import ResNet50Trunk, fibers
+from medvill_torch.models.resnet import (ResNet50Trunk, device_normalize,
+                                         fibers)
 from medvill_torch.ops.dropout import DropoutRNG
 
-PORTED_ENCODERS = ("random-pixel", "full-fiber")
+PORTED_ENCODERS = ("random-pixel", "full-fiber", "ViT")
+
+
+class ImagePatchEmbedding(nn.Module):
+    """ViT-style patch embedding (medvill_tpu/models/joint.py:34-53;
+    reference: models/image.py:95-110): uint8 or float NHWC images ->
+    [B, (H/p)(W/p), dim].  Patches come row-major and each flattens as
+    (row in patch, column in patch, channel), the reference's einops
+    ``b c (h p1) (w p2) -> b (h w) (p1 p2 c)``; the projection runs in
+    f32, as JAX's ``Dense`` does on its f32 input."""
+
+    def __init__(self, patch_size: int, dim: int = 2048, channels: int = 3):
+        super().__init__()
+        self.patch_size = patch_size
+        self.patch_to_embedding = nn.Linear(patch_size * patch_size
+                                            * channels, dim)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        x = device_normalize(image)
+        B, H, W, C = x.shape
+        p = self.patch_size
+        x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, (H // p) * (W // p), p * p * C)
+        return self.patch_to_embedding(
+            x.to(self.patch_to_embedding.weight.dtype))
 
 
 class JointEncoder(nn.Module):
@@ -53,12 +83,24 @@ class JointEncoder(nn.Module):
         self.img_position = img_position
         self.dtype = compute_dtype(config)
         self.txt_embeddings = BertEmbeddings(config)
-        self.img_encoder = ResNet50Trunk(dtype=self.dtype)
+        self.vit = image.encoder == "ViT"
+        patches = (image.img_size // image.patch_size) ** 2
+        if self.vit and image.num_image_embeds != patches:
+            raise ValueError(
+                f"the ViT encoder at {image.img_size} px, patch "
+                f"{image.patch_size}, gives {patches} image tokens, not "
+                f"num_image_embeds {image.num_image_embeds}")
+        if self.vit:
+            self.img_encoder = ImagePatchEmbedding(image.patch_size,
+                                                   image.img_hidden_size)
+        else:
+            self.img_encoder = ResNet50Trunk(dtype=self.dtype)
         self.img_embeddings = nn.ModuleDict({"img_embeddings": nn.Linear(
-            self.img_encoder.out_channels, config.hidden_size)})
+            image.img_hidden_size if self.vit
+            else self.img_encoder.out_channels, config.hidden_size)})
         self.encoder = BertEncoder(config)
         self.pooler = BertPooler(config)
-        if image.freeze_prefix_stages:
+        if image.freeze_prefix_stages and not self.vit:
             self.img_encoder.requires_grad_(False)
 
     def encode_image(self, image: torch.Tensor,
@@ -66,7 +108,11 @@ class JointEncoder(nn.Module):
                      train: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image [B, H, W, 3] -> (features [B, N, 2048], positions
-        [B, N])."""
+        [B, N]).  ViT: every patch, ``pixel_indices`` ignored."""
+        if self.vit:
+            feats = self.img_encoder(image)
+            B, M, _ = feats.shape
+            return feats, torch.arange(M, device=feats.device).expand(B, -1)
         frozen = self.image.freeze_prefix_stages
         with torch.no_grad() if frozen else contextlib.nullcontext():
             feats = fibers(self.img_encoder(image, train=train))

@@ -23,7 +23,10 @@ n_tokens).
   the checks against ``masks.tile_skippable``.
 
 Layout: q, k, v, o are [B, L, heads, D], the layout of the Q/K/V
-projections' ``view``; the kernels read and write it directly.  The TPU
+projections' ``view``; the kernels read and write it directly at D = 64
+(every BERT configuration of the reference).  A narrower head (the test
+configurations' 16) is zero-padded to 64 around the launch, at the scale
+1/sqrt(D): exact, at the cost of a copy (the TPU kernel takes any D).  The TPU
 path pads L to 16/128 multiples and groups heads per block (with the
 ``MEDVILL_ATTN_*`` environment overrides); none of that tuning applies to
 this kernel, which tiles L by ``TILE`` = 64 and masks the ragged edge
@@ -196,8 +199,8 @@ def _check(spec, *tensors) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"attention kernel takes f32 or bf16, got {q.dtype}")
     if q.dim() != 4 or q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"attention kernel takes [B, L, heads, {HEAD_DIM}], "
-                         f"got {tuple(q.shape)}")
+        raise ValueError(f"attention kernel takes [B, L, heads, D], D <= "
+                         f"{HEAD_DIM}, got {tuple(q.shape)}")
     if not 1 <= q.shape[1] <= _MAX_L:
         raise ValueError(f"attention kernel takes 1 <= L <= {_MAX_L}, got "
                          f"{q.shape[1]}")
@@ -217,12 +220,20 @@ def _check(spec, *tensors) -> None:
                         f"{spec.device}")
 
 
-def _scalars(q, img_block, l_real, family, rate, seed):
-    B, L, heads, D = q.shape
+def _scalars(q, img_block, l_real, family, rate, seed, head_dim):
+    B, L, heads, _ = q.shape
     return (B, L, heads, int(q.dtype == torch.bfloat16), int(img_block),
             int(l_real), int(family), int(rate > 0.0),
             *seed_args(seed, q.device), _threshold(rate), 1.0 / (1.0 - rate),
-            1.0 / math.sqrt(D))
+            1.0 / math.sqrt(head_dim))
+
+
+def _widen(*tensors):
+    """[B, L, heads, D < 64] tensors zero-padded to the kernels' head dim:
+    a zero column adds nothing to a score, an output row or a gradient, so
+    the kernel computes the narrow head exactly at the scale 1/sqrt(D)."""
+    return [torch.nn.functional.pad(t, (0, HEAD_DIM - t.shape[-1]))
+            for t in tensors]
 
 
 def attn_fwd(q, k, v, spec, *, img_block: int, l_real: int, family: int,
@@ -234,6 +245,9 @@ def attn_fwd(q, k, v, spec, *, img_block: int, l_real: int, family: int,
                               seed=seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for {q.device}")
+    d = q.shape[-1]
+    if d < HEAD_DIM:
+        q, k, v = _widen(q, k, v)
     _check(spec, q, k, v)
     B, L, heads, _ = q.shape
     o = torch.empty_like(q)
@@ -242,13 +256,13 @@ def attn_fwd(q, k, v, spec, *, img_block: int, l_real: int, family: int,
         err = _kernels()[0](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), spec.data_ptr(),
             o.data_ptr(), lse.data_ptr(),
-            *_scalars(q, img_block, l_real, family, rate, seed),
+            *_scalars(q, img_block, l_real, family, rate, seed, d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention forward kernel failed: CUDA error "
                            f"{err}")
     attn_fwd.launches += 1
-    return o, lse
+    return (o[..., :d].contiguous() if d < HEAD_DIM else o), lse
 
 
 attn_fwd.launches = 0
@@ -264,6 +278,9 @@ def attn_bwd(q, k, v, o, do, lse, spec, *, img_block: int, l_real: int,
                               seed=seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for {q.device}")
+    d = q.shape[-1]
+    if d < HEAD_DIM:
+        q, k, v, o, do = _widen(q, k, v, o, do)
     _check(spec, q, k, v, o, do)
     B, L, heads, _ = q.shape
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, heads, L) \
@@ -276,12 +293,14 @@ def attn_bwd(q, k, v, o, do, lse, spec, *, img_block: int, l_real: int,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), spec.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), dvec.data_ptr(),
-            *_scalars(q, img_block, l_real, family, rate, seed),
+            *_scalars(q, img_block, l_real, family, rate, seed, d),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"attention backward kernel failed: CUDA error "
                            f"{err}")
     attn_bwd.launches += 1
+    if d < HEAD_DIM:
+        return tuple(g[..., :d].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -230,6 +230,26 @@ def test_attention_kernels_match_plain(cuda_device, family, variant, dtype,
         img_block=img_block, l_real=L, family=family, rate=rate, seed=31))
 
 
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_take_narrow_heads(cuda_device, head_dim, dtype):
+    """A head narrower than the kernels' 64 (test-tiny's 16) is padded to
+    64 around the launch: K1 and K2 (one launch each) against the plain
+    versions at that width, rate 0.1, BAR, a ragged L; the outputs keep
+    the narrow shape."""
+    B, L, heads, img_block = 3, 150, 2, 22
+    gen = torch.Generator(device=cuda_device).manual_seed(head_dim)
+    q, k, v, do = (torch.randn(B, L, heads, head_dim, device=cuda_device,
+                               generator=gen).to(dtype) for _ in range(4))
+    spec = torch.tensor([[2, t] for t in (5, 60, 128)], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(img_block=img_block, l_real=L, family=tfa.FAMILY_PRETRAIN,
+              rate=0.1, seed=5)
+    _check_attention(q, k, v, do, spec, kw)
+    o, _ = tfa.attn_fwd(q, k, v, spec, **kw)
+    assert o.shape == q.shape and o.is_contiguous()
+
+
 @pytest.mark.parametrize("family,variant", ATTN_CASES)
 @pytest.mark.parametrize("L", [1, 63, 64, 65, 150, 436])
 @pytest.mark.parametrize("edge", ["inside", "on"])

@@ -349,3 +349,30 @@ def test_eval_copies_match_jax(metric, tmp_path):
         assert t_all["acc_v2"] == t_v2[0]
     else:
         assert tlang.language_eval(_preds()) == jlang.language_eval(_preds())
+
+
+def test_auto_decode_positions_follow_the_checkpoint_provenance(tmp_path):
+    """--decode_positions auto: "reference" for a torch file the reference
+    trained (no optim file beside it, or a reference optimizer file), as
+    the JAX CLIs decode a torch file; "train" for one this port's training
+    CLIs wrote (their optim.<N>.bin: the JAX CLIs' orbax case, decoded in
+    the train forward's layout) and for the random init; an explicit mode
+    stands.  Decoding the port's own finetune output in the reference's
+    layout had the overfit chain's BLEU-1 at 0.14 (1.0 in "train")."""
+    from medvill_torch.cli import window_positions
+
+    model = str(tmp_path / "model.3.bin")
+    torch.save({"w": torch.zeros(1)}, model)
+    assert window_positions("auto", model) == "reference"
+    torch.save({"state": {}, "param_groups": []},
+               str(tmp_path / "optim.3.bin"))
+    assert window_positions("auto", model) == "reference"
+    torch.save({"epoch": 3, "step": 8, "tx": {}, "generator": torch.zeros(1),
+                "loader": {"epoch": 4, "stream": None}},
+               str(tmp_path / "optim.3.bin"))
+    assert window_positions("auto", model) == "train"
+    assert window_positions("auto", None) == "train"
+    assert window_positions("global", model) == "global"
+    other = str(tmp_path / "weights.bin")
+    torch.save({"w": torch.zeros(1)}, other)
+    assert window_positions("auto", other) == "reference"

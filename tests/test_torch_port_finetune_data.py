@@ -20,7 +20,8 @@ import torch
 
 from medvill_torch import checkpoint as tckpt
 from medvill_torch import config as tcfg
-from medvill_torch.cli import finetune_main, pretrain_main, serve_main
+from medvill_torch.cli import (finetune_main, pretrain_main, serve_main,
+                               window_positions)
 from medvill_torch.convert import (cxrbert_state_dict_from_flax,
                                    load_vlp_checkpoint, save_state_dict,
                                    vlp_state_dict_from_flax)
@@ -410,6 +411,9 @@ def test_finetune_cli_report_generation_on_cpu(tmp_path):
     ids = run(np.random.default_rng(1).integers(0, 256, (2, IMG, IMG, 3),
                                                 dtype=np.uint8))
     assert np.asarray(ids).shape == (2, 4)
+    # trained by this port: decoded in its train forward's position layout
+    assert window_positions("auto", os.path.join(out, "model.1.bin")) == \
+        "train"
     assert finetune_main.build_parser().parse_args(argv[:-2]).device == \
         "cuda"
 

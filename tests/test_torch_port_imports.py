@@ -1,6 +1,7 @@
-"""The port stands alone: importing every medvill_torch module and
-chip_smoke loads neither jax nor medvill_tpu, and the entry points that run
-on the card refuse a host without one instead of falling back to the CPU."""
+"""The port stands alone: importing every medvill_torch module,
+chip_smoke, tools/torch_overfit and tools/torch_overfit_itm loads neither
+jax nor medvill_tpu, and the entry points that run on the card refuse a
+host without one instead of falling back to the CPU."""
 import os
 import pkgutil
 import shutil
@@ -34,11 +35,12 @@ def test_modules_import_neither_jax_nor_medvill_tpu():
                  "eval.metrics", "models.mmbt", "train.classify",
                  "utils.seed", "torch_init", "utils.preempt",
                  "data.retrieval", "models.cnn_bert", "train.retrieve",
-                 "cli.retrieval_main"):
+                 "cli.retrieval_main", "data.native_tokenizer"):
         assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"
-        f"for name in {names!r} + ['chip_smoke']:\n"
+        f"for name in {names!r} + ['chip_smoke', 'tools.torch_overfit',\n"
+        "                         'tools.torch_overfit_itm']:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
