@@ -234,11 +234,37 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    R = 36 x 512 = 18432 the same way; then the trainer with fused_ln on:
    exactly 12/12/24/24 K1-K4 launches per micro-step, the loss falls, and
    the steady ms per micro-step eager against graphed (k = 4) in turns.
+25. tp-heads: K1/K2 on the local heads of --model_parallel 2 and 4 (H 6
+   and H 3 of BERT-base's 12) at the pretrain call (B = 36, L = 436, BAR)
+   against their plain versions in f32 and bf16 at rates 0 and 0.1; at
+   rate 0 the launches over each group of heads, concatenated, equal the
+   H 12 launch bit for bit (o, lse, dq, dk, dv); timed at the training
+   call (bf16, rate 0.1) beside bound, plain and library.
+26. dist-1: the pretrain CLI at full width (B = 36, L = 436, BAR,
+   fused_ln on) as a one-process launch (WORLD_SIZE=1, NCCL) with --zero1
+   true, eagerly and at --steps_per_dispatch 4 (the gradient all-reduce,
+   ZeRO-1's reduce-scatter and all-gather and the metrics' all-reduce
+   captured in the CUDA graphs), against the same CLI without
+   torch.distributed, under deterministic algorithms: the epoch's metrics
+   and model.0.bin equal bit for bit, the optimizer state gathered from
+   ZeRO-1's spans equal to the replicated one's, 12/12/24/24 K1-K4 per
+   micro-step; then the steady ms per micro-step and peak memory of the
+   step with and without the process group, eager and graphed (k = 4).
+   Two ranks need two GPUs (NCCL refuses two ranks on one device): with
+   one, a line says the two-rank legs wait for such a host.
+27. dist-2 (two or more GPUs): two ranks of the pretrain CLI at full width
+   (see phase_dist2): data parallelism with --zero1 true at k = 2, a
+   SIGTERM to rank 1 alone stops both at one boundary and the relaunch
+   ends bit-equal to an uninterrupted two-rank run, whose model.1.bin
+   loads here and evaluates as rank 0 logged; each rank's peak memory
+   lower with --zero1 true than without; --model_parallel 2 at dropout 0
+   within 1e-3 of one process's losses.
 
 Then the line of kernels (each with its launches by path and, beside the
 training shape's figures, its figures at the finetune shape and the ViT
 pretrain shape (``vit_shape``), K1/K2's at the classification and
-retrieval shapes, K1's at the scoring and the eval calls), and last
+retrieval shapes and on the tensor-parallel local heads (``tp_shape``),
+K1's at the scoring and the eval calls), and last
 {"ok": true, "device": {...}}.  Without
 a CUDA device it prints the reason to stderr and exits 1.
 """
@@ -265,6 +291,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from medvill_torch import parallel
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
 from medvill_torch.cli import (classification_main, decode_main,
                                finetune_main, make_tokenizer, pretrain_main,
@@ -720,8 +747,9 @@ def phase_parity(argv: list, device) -> None:
           "tol": 1e-3})
 
 
-def _attn_inputs(device, gen, B, L, img_block, family, variant, dtype):
-    q, k, v, do = (torch.randn(B, L, HEADS, HEAD_DIM, device=device,
+def _attn_inputs(device, gen, B, L, img_block, family, variant, dtype,
+                 heads: int = HEADS):
+    q, k, v, do = (torch.randn(B, L, heads, HEAD_DIM, device=device,
                                generator=gen).to(dtype) for _ in range(4))
     if family == fa.FAMILY_PRETRAIN:
         txt = torch.randint(1, L - img_block + 1, (B,), device=device,
@@ -920,7 +948,7 @@ def _attn_times(q, k, v, do, spec, kw: dict, backward: bool = True) -> dict:
     leave visible (``pairs``: visible cells x heads x 64, the operations'
     unit; ``visible_cells``: their share of B x L x L).  Without
     ``backward``, K1's figures only."""
-    B, L = q.shape[:2]
+    B, L, heads = q.shape[:3]
     o, lse = fa.attn_fwd(q, k, v, spec, **kw)
 
     def k1():
@@ -955,17 +983,17 @@ def _attn_times(q, k, v, do, spec, kw: dict, backward: bool = True) -> dict:
     # the work this call's masks leave: the visible (query, key) cells, and
     # the k and v rows some query sees (a key no query sees is never read)
     vis = bias[:, 0] == 0
-    row = HEADS * HEAD_DIM * q.element_size()
-    pairs = int(vis.sum()) * HEADS * HEAD_DIM
+    row = heads * HEAD_DIM * q.element_size()
+    pairs = int(vis.sum()) * heads * HEAD_DIM
     full, seen = B * L * row, int(vis.any(1).sum()) * row
-    lse_bytes = B * HEADS * L * 4
+    lse_bytes = B * heads * L * 4
     # K1 reads q, k, v and writes o, lse; K2 reads q, k, v, o, dO, lse and
     # writes dq, dk, dv
     k1_bound, k1_by = bound(2 * full + 2 * seen + lse_bytes, 4 * pairs,
                             q.dtype)
     k2_bound, k2_by = bound(6 * full + 2 * seen + lse_bytes, 10 * pairs,
                             q.dtype)
-    fwd = {"pairs": pairs, "visible_cells": pairs / (B * L * L * HEADS
+    fwd = {"pairs": pairs, "visible_cells": pairs / (B * L * L * heads
                                                       * HEAD_DIM),
            "k1_ms": device_ms(k1, iters=50, reps=3),
            "k1_plain_ms": device_ms(k1_plain, iters=3, reps=2),
@@ -3682,6 +3710,438 @@ def phase_pretrain_vit(d: str, data: str, vocab: str, device) -> tuple:
           "seconds": time.perf_counter() - t_phase})
     return cli_counts, fused_counts, entries
 
+def _head_groups(t: torch.Tensor, n: int) -> list:
+    """[B, L, heads, ...] cut into ``n`` contiguous groups of heads, as the
+    model ranks of --model_parallel n hold them."""
+    return [c.contiguous() for c in t.chunk(n, dim=2)]
+
+
+def phase_tp_heads(device) -> dict:
+    """K1/K2 on the local heads of --model_parallel 2 and 4 at the pretrain
+    call (see the module docstring, phase 25).  Returns the kernels-line
+    entries, {"K1": {"H6": ..., "H3": ...}, "K2": ...}."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    bar = int(MaskVariant.BAR)
+    out = {"K1": {}, "K2": {}}
+    report = {}
+    for mp in (2, 4):
+        h = HEADS // mp
+        worst: dict = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in (0.0, 0.1):
+                q, k, v, do, spec = _attn_inputs(
+                    device, gen, PRE_B, PRE_L, PRE_IMG_BLOCK,
+                    fa.FAMILY_PRETRAIN, bar, dtype, heads=h)
+                kw = dict(img_block=PRE_IMG_BLOCK, l_real=PRE_L,
+                          family=fa.FAMILY_PRETRAIN, rate=rate, seed=14)
+                errs, tol = _attn_errs(q, k, v, do, spec, kw,
+                                       f"H {h} {dtype} rate {rate}")
+                _worst(worst, f"{str(dtype)[6:]}/rate{rate}", errs, tol)
+                del q, k, v, do
+        # rate 0: a head's tiles read only that head, so the groups'
+        # launches concatenated are the H 12 launch
+        q, k, v, do, spec = _attn_inputs(
+            device, gen, PRE_B, PRE_L, PRE_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+            bar, torch.bfloat16)
+        kw = dict(img_block=PRE_IMG_BLOCK, l_real=PRE_L,
+                  family=fa.FAMILY_PRETRAIN, rate=0.0, seed=0)
+        o, lse = fa.attn_fwd(q, k, v, spec, **kw)
+        whole = (o, lse, *fa.attn_bwd(q, k, v, o, do, lse, spec, **kw))
+        parts = []
+        for qs, ks, vs, dos in zip(*(_head_groups(t, mp)
+                                     for t in (q, k, v, do))):
+            os_, lses = fa.attn_fwd(qs, ks, vs, spec, **kw)
+            parts.append((os_, lses, *fa.attn_bwd(qs, ks, vs, os_, dos, lses,
+                                                  spec, **kw)))
+        for i, name in enumerate(("o", "lse", "dq", "dk", "dv")):
+            dim = 1 if name == "lse" else 2  # lse is [B, heads, L]
+            check(torch.equal(torch.cat([p[i] for p in parts], dim),
+                              whole[i]),
+                  f"H {h}: the {mp} groups' {name} differ from the H 12 "
+                  "launch")
+        del q, k, v, do, o, lse, whole, parts
+        q, k, v, do, spec = _attn_inputs(
+            device, gen, PRE_B, PRE_L, PRE_IMG_BLOCK, fa.FAMILY_PRETRAIN,
+            bar, torch.bfloat16, heads=h)
+        kw = dict(img_block=PRE_IMG_BLOCK, l_real=PRE_L,
+                  family=fa.FAMILY_PRETRAIN, rate=0.1, seed=15)
+        errs, _ = _attn_errs(q, k, v, do, spec, kw, f"H {h} timed call")
+        t = _attn_times(q, k, v, do, spec, kw)
+        del q, k, v, do
+        g_err = max(errs[n] for n in ("dq", "dk", "dv"))
+        for kid, n, err in (("K1", "k1", errs["o"]), ("K2", "k2", g_err)):
+            out[kid][f"H{h}"] = {
+                "max_abs_err": err, "ms": t[f"{n}_ms"],
+                "plain_ms": t[f"{n}_plain_ms"],
+                "bound_ms": t[f"{n}_bound_ms"],
+                "bound_by": t[f"{n}_bound_by"],
+                "library_ms": t[f"{n}_library_ms"]}
+        report[f"H{h}"] = {"model_parallel": mp, "cases": 4,
+                           "max_abs_err": worst, **t,
+                           "groups_equal_h12_launch": True}
+    emit({"phase": "tp-heads", "timed": f"K1/K2 B={PRE_B} L={PRE_L} "
+                                        "Hx64 bf16 BAR rate 0.1",
+          **report, "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _Launched:
+    """A one-process launch's variables in the environment (WORLD_SIZE=1,
+    RANK 0, this host), removed again on exit, with the process group
+    destroyed and the layout forgotten."""
+
+    def __enter__(self):
+        self.env = dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                        MASTER_ADDR="localhost",
+                        MASTER_PORT=str(_free_port()))
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for k in self.env:
+            os.environ.pop(k, None)
+        parallel.reset()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        return False
+
+
+def _dist1_cli(out: str, data: str, vocab: str, k: int, launched: bool):
+    """The pretrain CLI with fused_ln on over the train records at
+    --steps_per_dispatch k, with --zero1 true under a one-process launch:
+    (its epoch row, launches, peak GiB)."""
+    argv = ["--train_dataset", data, "--vocab_file", vocab,
+            "--output_path", out, "--epochs", "1", "--device", "cuda",
+            "--log_freq", "4", "--num_workers", "4",
+            "--steps_per_dispatch", str(k)]
+    if launched:
+        argv += ["--zero1", "true"]
+    real = pretrain_main.config_from_args
+
+    def fused(args):
+        cfg = real(args)
+        return dataclasses.replace(
+            cfg, bert=dataclasses.replace(cfg.bert, fused_ln=True))
+
+    pretrain_main.config_from_args = fused
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        if launched:
+            with _Launched():
+                rows = pretrain_main.main(argv)
+        else:
+            rows = pretrain_main.main(argv)
+    finally:
+        pretrain_main.config_from_args = real
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rows[0], counts, peak
+
+
+def _tx_equal(got: str, want: str) -> None:
+    """optim.0.bin's optimizer state (moments, steps, host values) of two
+    runs equal, tensor by tensor bit for bit."""
+    a, b = (torch.load(os.path.join(d, "optim.0.bin"), map_location="cpu",
+                       weights_only=True, mmap=True)["tx"]
+            for d in (got, want))
+    check(a["optimizer"] == b["optimizer"] and a["host"] == b["host"]
+          and a["count"] == b["count"] and len(a["state"]) == len(b["state"]),
+          "the optimizer states differ in kind or size")
+    for i, (x, y) in enumerate(zip(a["state"], b["state"])):
+        check(x.keys() == y.keys(), f"optimizer state {i}: other entries")
+        for key in x:
+            check(torch.equal(x[key], y[key]),
+                  f"optimizer state {i}/{key} differs")
+
+
+def phase_dist1(d: str, data: str, vocab: str, device) -> dict:
+    """The pretrain CLI as a one-process NCCL launch (see the module
+    docstring, phase 26).  Returns the launched runs' launches."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    runs = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, k, launched in (("plain", 1, False), ("nccl", 1, True),
+                                  ("nccl-graphed", 4, True)):
+            out = os.path.join(d, f"dist1_{name}")
+            row, counts, peak = _dist1_cli(out, data, vocab, k, launched)
+            want = {n: c * MICRO_STEPS for n, c in KERNEL_COUNTS.items()}
+            check(counts == want, f"dist-1 {name} launches {counts}")
+            check(row["micro_steps"] == MICRO_STEPS, f"dist-1 {name} {row}")
+            runs[name] = {"dir": out, "row": row, "launches": counts,
+                          "peak_mem_gib": peak,
+                          "ms_per_micro_step": row["epoch_time_s"]
+                          / MICRO_STEPS * 1e3}
+            check(not dist.is_initialized(), "the process group outlived "
+                  "its launch")
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    keys = [k for k in runs["plain"]["row"] if k.startswith("avg_")]
+    for name in ("nccl", "nccl-graphed"):
+        for key in keys:
+            check(runs[name]["row"][key] == runs["plain"]["row"][key],
+                  f"dist-1 {name} {key} {runs[name]['row'][key]} != "
+                  f"{runs['plain']['row'][key]}")
+        _same_files(runs[name]["dir"], runs["plain"]["dir"],
+                    ("model.0.bin",))
+        _tx_equal(runs[name]["dir"], runs["plain"]["dir"])
+    launches = {n: runs["nccl"]["launches"][n]
+                + runs["nccl-graphed"]["launches"][n] for n in KERNEL_COUNTS}
+    # the steady step with and without the process group, one batch
+    cfg = pretrain_main.config_from_args(pretrain_main.build_parser(
+        ).parse_args(["--train_dataset", data, "--vocab_file", vocab]))
+    cfg = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert,
+                                                            fused_ln=True))
+    batch = _train_batch(data, vocab, cfg, device, PRE_B)
+    steady = {}
+    for name, launched in (("plain", False), ("nccl", True),
+                           ("nccl2", True), ("plain2", False)):
+        def make_state():
+            state = pretrain_lib.init_state(cfg, seed=SEED, device=device)
+            parallel.place(state, zero1=launched)
+            return state
+
+        torch.cuda.reset_peak_memory_stats()
+        if launched:
+            with _Launched():
+                parallel.initialize(device)
+                parallel.configure(1)
+                timing = _graph_timing(
+                    make_state, lambda: pretrain_lib.make_train_step(cfg),
+                    batch, 4, profile=False, rounds=2)
+        else:
+            timing = _graph_timing(
+                make_state, lambda: pretrain_lib.make_train_step(cfg),
+                batch, 4, profile=False, rounds=2)
+        timing["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        steady[name] = timing
+    emit({"phase": "dist-1", "batch": PRE_B, "seq": PRE_L,
+          "micro_steps": MICRO_STEPS, "zero1": True, "fused_ln": True,
+          "cli": {n: {k: v for k, v in r.items() if k != "dir"}
+                  for n, r in runs.items()},
+          "equal_to_plain": ["avg_* metrics", "model.0.bin", "optim tx"],
+          "steady": steady, "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# a rank of the pretrain CLI under a launch (phase dist-2): argv from the
+# spec, deterministic algorithms, dropout 0 when asked; its rows and
+# kernel launches printed as the last line
+_RANK_WORKER = """
+import dataclasses, json, sys
+import torch
+torch.use_deterministic_algorithms(True)
+from medvill_torch.cli import pretrain_main
+from medvill_torch.ops import flash_attention as fa, fused_ln
+spec = json.loads(sys.argv[1])
+if spec["dropout0"]:
+    real = pretrain_main.config_from_args
+    def config(args):
+        cfg = real(args)
+        return dataclasses.replace(cfg, bert=dataclasses.replace(
+            cfg.bert, hidden_dropout_prob=0.0,
+            attention_probs_dropout_prob=0.0))
+    pretrain_main.config_from_args = config
+# the peak from the first update on: the optimizer's state exists, as in
+# every later step (before it, the first backward sets the run's peak)
+from medvill_torch.train import optim
+cuda, first = torch.cuda.is_available(), []
+finish = optim.Accumulate.finish
+def finish_and_mark(self, applied):
+    finish(self, applied)
+    if applied and cuda and not first:
+        torch.cuda.synchronize()
+        first.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+optim.Accumulate.finish = finish_and_mark
+rows = pretrain_main.main(spec["argv"])
+print("RESULT " + json.dumps({"rows": rows, "launches": {
+    "K1": fa.attn_fwd.launches, "K2": fa.attn_bwd.launches,
+    "K3": fused_ln.fused_ln_fwd.launches,
+    "K4": fused_ln.fused_ln_bwd.launches},
+    "peak_gib": max(first + [torch.cuda.max_memory_allocated() / 2 ** 30])
+    if cuda else None,
+    "steady_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+    if cuda and first else None}), flush=True)
+"""
+
+
+def _ranks(argv: list, d: str, name: str, world: int, dropout0: bool = False,
+           term_rank1_at: str = None) -> list:
+    """``world`` ranks of the pretrain CLI (``_RANK_WORKER``), one per
+    GPU, a launcher's variables in their environment (none at world 0: one
+    process without torch.distributed); with ``term_rank1_at``, a SIGTERM
+    to rank 1 alone when rank 0 logs that text.  Returns each rank's
+    RESULT."""
+    port = str(_free_port())
+    procs, logs = [], []
+    for r in range(max(world, 1)):
+        env = {k: v for k, v in os.environ.items()
+               if k not in parallel.ENV}
+        if world:
+            env.update(WORLD_SIZE=str(world), RANK=str(r),
+                       LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                       MASTER_PORT=port)
+        log = os.path.join(d, f"{name}.rank{r}.log")
+        logs.append(log)
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK_WORKER,
+                 json.dumps({"argv": argv, "dropout0": dropout0})],
+                env=env, stdout=f, stderr=subprocess.STDOUT))
+    try:
+        sent = term_rank1_at is None
+        deadline = time.time() + 600
+        while any(p.poll() is None for p in procs):
+            check(time.time() < deadline, f"{name}: ranks still running")
+            if not sent:
+                with open(logs[0]) as f:
+                    if term_rank1_at in f.read():
+                        procs[1].send_signal(signal.SIGTERM)
+                        sent = True
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    out = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        with open(log) as f:
+            text = f.read()
+        check(p.returncode == 0, f"{name} rank {r} exited {p.returncode}: "
+              f"{text[-3000:]}")
+        check(sent, f"{name}: rank 0 never logged {term_rank1_at!r}")
+        line = [x for x in text.splitlines() if x.startswith("RESULT ")][-1]
+        out.append(json.loads(line[len("RESULT "):]))
+    return out
+
+
+def phase_dist2(d: str, data: str, vocab: str, device) -> dict:
+    """Two ranks of the pretrain CLI at full width, one per GPU (NCCL;
+    gloo with the CPU), under deterministic algorithms: (1) data
+    parallelism with --zero1 true at k = 2 (per-rank batch 36, 2 epochs of
+    2 dispatches), stopped by a SIGTERM to rank 1 alone when rank 0 logs
+    its first dispatch: both ranks stop at the same boundary (one marker),
+    and the relaunch ends with model.1.bin and optim.1.bin equal bit for
+    bit to an uninterrupted two-rank run's; model.1.bin loads strictly in
+    this process, whose eval of the test records equals the eval rank 0
+    logged; (2) --model_parallel 2 (K1/K2 on 6 heads a rank) at dropout 0
+    against one process: the epoch's losses within 1e-3 relative (bf16
+    products summed in another order, the row-parallel partial sums
+    all-reduced in bf16), 12 K1 and 12 K2 per micro-step on each rank,
+    model.0.bin strict here; (3) each rank's peak memory over two epochs
+    at k = 2 with and without --zero1 true, and from the first update on,
+    where the moments are resident: lower with it.  Skipped, with
+    a line saying so, on fewer than two GPUs.  Returns the ranks'
+    launches."""
+    if device.type == "cuda" and torch.cuda.device_count() < 2:
+        emit({"phase": "dist-2", "skipped": True,
+              "reason": f"{torch.cuda.device_count()} GPU: the two-rank "
+                        "NCCL legs wait for a host with two GPUs (NCCL "
+                        "refuses two ranks on one device)"})
+        return {}
+    t_phase = time.perf_counter()
+    test_data = os.path.join(d, "dist2_test.jsonl")
+    with open(data) as f, open(test_data, "w") as g:
+        g.writelines(line for _, line in zip(range(PRE_B), f))
+
+    def argv(out, *extra):
+        return ["--train_dataset", data, "--vocab_file", vocab,
+                "--output_path", out, "--device", device.type,
+                "--num_workers", "4", "--log_freq", "1", *extra]
+
+    dp = ("--epochs", "2", "--steps_per_dispatch", "2", "--zero1", "true",
+          "--test_dataset", test_data)
+    runs = {n: os.path.join(d, f"dist2_{n}") for n in ("twin", "stopped")}
+    twin = _ranks(argv(runs["twin"], *dp), d, "twin", 2)
+    first = _ranks(argv(runs["stopped"], *dp), d, "stopped", 2,
+                   term_rank1_at="epoch 0 it 0 ")
+    marker = preempt.read_marker(runs["stopped"])
+    check(marker is not None and first[0]["rows"] == first[1]["rows"] == [],
+          f"dist-2: not stopped mid-run: marker {marker}")
+    resumed = _ranks(argv(runs["stopped"], *dp), d, "resumed", 2)
+    _same_files(runs["stopped"], runs["twin"], ("model.1.bin",
+                                                "optim.1.bin"))
+    check(preempt.read_marker(runs["stopped"]) is None, "marker left")
+    rows = twin[0]["rows"]
+    check(len(rows) == 2 and all(np.isfinite(r["avg_loss"]) for r in rows),
+          f"dist-2 rows {rows}")
+    cfg = pretrain_main.config_from_args(pretrain_main.build_parser(
+        ).parse_args(argv(runs["twin"])))
+    model = pretrain_lib.build_model(cfg).to(device)
+    check(load_cxrbert_checkpoint(model, os.path.join(
+        runs["twin"], "model.1.bin")) == [], "dist-2 model.1.bin not strict")
+    tok = BertTokenizer.from_vocab_file(vocab, remap_unused=False)
+    test_ds = CXRPretrainDataset(test_data, tok, cfg, seed=cfg.seed + 1)
+    test_ds.rng.seed(cfg.seed + 1)
+    step = pretrain_lib.make_eval_step(cfg)
+    losses = [step(model, pretrain_lib.to_device(b, device))["loss"].item()
+              for b in BatchLoader(test_ds, cfg.batch_size, shuffle=False)]
+    eval_here, eval_rank0 = float(np.mean(losses)), rows[1]["eval_avg_loss"]
+    check(abs(eval_here - eval_rank0) <= 1e-5 * abs(eval_rank0),
+          f"dist-2 eval here {eval_here} != rank 0's {eval_rank0}")
+    del model
+    # ZeRO-1's purpose: each rank's peak with and without it, k = 2, over
+    # the run and from the first update on (the moments resident; the
+    # second epoch captures the update's graph then)
+    peaks = {}
+    for name, extra in (("replicated", ()), ("zero1", ("--zero1", "true"))):
+        res = _ranks(argv(os.path.join(d, f"dist2_mem_{name}"), "--epochs",
+                          "2", "--steps_per_dispatch", "2", *extra), d,
+                     f"mem_{name}", 2)
+        peaks[name] = {k: [r[k] for r in res]
+                       for k in ("peak_gib", "steady_peak_gib")}
+    check(device.type != "cuda" or all(z < r for z, r in zip(
+        peaks["zero1"]["steady_peak_gib"],
+        peaks["replicated"]["steady_peak_gib"])),
+        f"dist-2: ZeRO-1 saves no memory: peaks {peaks}")
+    tp_args = ("--epochs", "1", "--model_parallel", "2")
+    one = _ranks(argv(os.path.join(d, "dist2_one"), "--epochs", "1"), d,
+                 "one", 0, dropout0=True)
+    tp = _ranks(argv(os.path.join(d, "dist2_tp"), *tp_args), d, "tp", 2,
+                dropout0=True)
+    for key in ("avg_loss", "avg_mlm_loss", "avg_itm_loss"):
+        a, b = tp[0]["rows"][0][key], one[0]["rows"][0][key]
+        check(abs(a - b) <= 1e-3 * abs(b), f"dist-2 tp {key} {a} vs {b}")
+    for r in tp:
+        want = {"K1": 12 * MICRO_STEPS, "K2": 12 * MICRO_STEPS, "K3": 0,
+                "K4": 0}
+        check(r["launches"] == want, f"dist-2 tp launches {r['launches']}")
+    model = pretrain_lib.build_model(cfg)
+    check(load_cxrbert_checkpoint(model, os.path.join(
+        d, "dist2_tp", "model.0.bin")) == [], "dist-2 tp model.0.bin")
+    del model
+    emit({"phase": "dist-2", "world": 2, "marker": marker,
+          "resumed_equal": ["model.1.bin", "optim.1.bin"],
+          "eval_loss": {"rank0": eval_rank0, "one_process": eval_here},
+          "dp_rows": rows, "peak_gib_per_rank": peaks, "tp_losses": {
+              k: [tp[0]["rows"][0][k], one[0]["rows"][0][k]]
+              for k in ("avg_loss", "avg_mlm_loss", "avg_itm_loss")},
+          "tp_pairs_per_s": tp[0]["rows"][0]["pairs_per_s"],
+          "one_pairs_per_s": one[0]["rows"][0]["pairs_per_s"],
+          "seconds": time.perf_counter() - t_phase})
+    launches = {n: 0 for n in KERNEL_COUNTS}
+    for res in (*twin, *resumed, *tp):
+        for n in launches:
+            launches[n] += res["launches"][n]
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3729,6 +4189,9 @@ def main() -> int:
         phase_tokenizer(data, vocab)
         vit_counts, vit_fused_counts, vit_entries = phase_pretrain_vit(
             d, data, vocab, device)
+        tp_entries = phase_tp_heads(device)
+        dist1_counts = phase_dist1(d, data, vocab, device)
+        dist2_counts = phase_dist2(d, data, vocab, device)
     paths = {"serve": {"K3": serve_launches}, "train": train_counts,
              "train-fused": fused_counts, "finetune": finetune_counts,
              "decode": decode_counts, "classify": classify_counts,
@@ -3738,7 +4201,10 @@ def main() -> int:
              "resume": {k: resume_counts[k] for k in ("K1", "K2")},
              "resume-ft": resume_ft_counts,
              "pretrain-vit": {k: vit_counts[k] for k in ("K1", "K2")},
-             "pretrain-vit-fused": vit_fused_counts}
+             "pretrain-vit-fused": vit_fused_counts,
+             "dist-1": dist1_counts}
+    if dist2_counts:
+        paths["dist-2"] = dist2_counts
     sources = {"K1": ("flash_attention_fwd", "flash_attention.cu",
                       "medvill_tpu/ops/flash_attention.py:95"),
                "K2": ("flash_attention_bwd", "flash_attention.cu",
@@ -3759,6 +4225,8 @@ def main() -> int:
     kernels[0]["eval_shape"] = eval_k1
     for entry in kernels:
         entry["vit_shape"] = vit_entries[entry["id"]]
+        if entry["id"] in tp_entries:
+            entry["tp_shape"] = tp_entries[entry["id"]]
     for key, shape in (("serve_shape", "prefill"),
                        ("beam_window_shape", "beam-window")):
         rec = k3_shapes[shape]

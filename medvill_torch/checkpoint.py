@@ -51,6 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from medvill_torch import parallel
 from medvill_torch.convert import _read_checkpoint
 
 # the MLM-head transform, stacked relax_projection times along torch's out
@@ -234,20 +235,31 @@ def save_training_state(directory: str, epoch: int, state, generator,
     """``model.<epoch>.bin`` and ``optim.<epoch>.bin`` of ``state`` (a
     ``TrainState``), the host ``generator`` and ``loader`` (a
     ``BatchLoader``: ``state(in_epoch)``, ``in_epoch`` for a run stopped
-    inside the epoch) under ``directory``; returns their paths."""
+    inside the epoch) under ``directory``; returns their paths.  Under
+    scale-out every rank calls it: the single-process format is gathered
+    (``parallel.full_state_dict``, ``Accumulate.state_dict``), rank 0
+    writes it, with every data rank's loader state under ``loader_ranks``
+    (each rank's shard has its own sample stream), and the ranks meet at
+    a barrier after the write."""
     model_path, optim_path = _paths(directory, epoch)
-    model_tmp = _write({k: v.detach().cpu() for k, v in
-                        state.model.state_dict().items()}, model_path)
-    optim_tmp = _write({"epoch": int(epoch), "step": int(state.step),
-                        "tx": state.tx.state_dict(),
-                        "generator": generator.get_state(),
-                        "loader": loader.state(in_epoch)}, optim_path)
-    try:
-        os.remove(optim_path)  # the old pair is no pair while both move
-    except FileNotFoundError:
-        pass
-    os.replace(model_tmp, model_path)
-    os.replace(optim_tmp, optim_path)
+    model_sd = parallel.full_state_dict(state.model)
+    optim = {"epoch": int(epoch), "step": int(state.step),
+             "tx": state.tx.state_dict(),
+             "generator": generator.get_state(),
+             "loader": loader.state(in_epoch)}
+    ranks = parallel.data_states(optim["loader"])
+    if ranks is not None:
+        optim["loader_ranks"] = ranks
+    if parallel.is_main():
+        model_tmp = _write(model_sd, model_path)
+        optim_tmp = _write(optim, optim_path)
+        try:
+            os.remove(optim_path)  # the old pair is no pair while both move
+        except FileNotFoundError:
+            pass
+        os.replace(model_tmp, model_path)
+        os.replace(optim_tmp, optim_path)
+    parallel.barrier()
     return model_path, optim_path
 
 
@@ -299,5 +311,6 @@ def restore_training_state(directory: str, epoch: int, state,
     if generator is not None:
         generator.set_state(saved["generator"])
     if loader is not None:
-        loader.load_state(saved["loader"])
+        loader.load_state(parallel.my_state(saved["loader"],
+                                            saved.get("loader_ranks")))
     return saved

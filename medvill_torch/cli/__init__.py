@@ -53,6 +53,24 @@ def str2bool(v):
     return str(v).lower() in ("1", "true", "yes")
 
 
+def add_parallelism_args(p) -> None:
+    """The parallelism flag pair of the four trainer CLIs, with JAX's
+    defaults (medvill_tpu/cli/__init__.py:29-46); wired through
+    ``parallel.configure`` and ``parallel.place``."""
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="tensor-parallel degree: lay the ranks out as "
+                        "(data, model) and shard the joint encoder "
+                        "Megatron-style over the model axis "
+                        "(parallel.py::shard_state).  Requires "
+                        "num_attention_heads %% N == 0.  Default 1 = pure "
+                        "data parallelism (the reference's only strategy).")
+    p.add_argument("--zero1", type=str2bool, default=False,
+                   help="ZeRO-1 optimizer-state sharding: Adam moments "
+                        "sharded over the data axis "
+                        "(parallel.py::Zero1); composes with "
+                        "--model_parallel")
+
+
 def collect_metrics(agg: dict, metrics: dict, is_group: bool) -> None:
     """Appends a step's device metrics to ``agg`` (name -> list of
     per-micro-step tensors); a dispatch's metrics are stacked [k]."""

@@ -41,11 +41,18 @@ is read after every dispatch; the CLI then writes the epoch's
 the epochs done.  A relaunch starts afresh: a classification run is short
 and early-stopped, so there is no position to resume.
 
+Scale-out (``parallel.py``): under ``torchrun`` ``--batch_sz`` stays the
+global batch, as on JAX's mesh: every rank loads it and trains on its data
+rank's block of rows (``parallel.local_rows``; the data ranks must divide
+it, as JAX's placement requires), with the trunk's
+train-mode BatchNorm on the global batch's statistics; ``--model_parallel``
+and ``--zero1`` lay the model and the BertAdam moments out over the ranks;
+every rank evaluates the whole splits, rank 0 writes the files, and
+SIGTERM on any rank stops every rank at the same batch, polled every
+``preempt.POLL_EVERY`` batches (JAX :254-269).
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): the mesh/parallelism flags (with
-them ``global_any``, whose agreement JAX polls every
-``preempt.POLL_EVERY`` batches); argparse rejects them like any unknown
-flag.
+without one.
 """
 from __future__ import annotations
 
@@ -63,7 +70,9 @@ import torch
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import (latest_pretrain_file,
                                       merge_pretrained_into_mmbt)
-from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
+from medvill_torch import parallel
+from medvill_torch.cli import (add_parallelism_args, collect_metrics,
+                               make_tokenizer, str2bool)
 from medvill_torch.config import (BertConfig, ClassificationConfig,
                                   ImageEncoderConfig)
 from medvill_torch.convert import load_mmbt_checkpoint
@@ -146,6 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "overhead; no reference equivalent")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    add_parallelism_args(p)
     return p
 
 
@@ -193,8 +203,9 @@ def train(args) -> dict:
     """Runs the epochs and the test; returns {"epochs": one row per epoch,
     "test": the test metrics or None, "merged": the keys merged from
     --loaddir}."""
-    device = resolve_device(args.device)
+    device = parallel.initialize(resolve_device(args.device))
     set_seed(args.seed)
+    main_rank = parallel.is_main()
     savedir = os.path.join(args.savedir, args.save_name)
     os.makedirs(savedir, exist_ok=True)
     logger = create_logger(os.path.join(savedir, "logfile.log"), args)
@@ -202,6 +213,8 @@ def train(args) -> dict:
     train_path = os.path.join(args.data_path, args.Train_dset_name)
     labels, freqs = get_labels_and_frequencies(train_path)
     cfg = config_from_args(args, labels)
+    parallel.configure(args.model_parallel, cfg.bert.num_attention_heads)
+    parallel.check_global_batch(cfg.batch_size, "--batch_sz")
 
     def dataset(path, **kw):
         return ClassificationDataset(
@@ -238,6 +251,7 @@ def train(args) -> dict:
         path = latest_pretrain_file(args.loaddir)
         merged = merge_pretrained_into_mmbt(state.model, path)
         logger.info("merged %d tensors from %s", len(merged), path)
+    parallel.place(state, args.zero1)
     cls_id, sep_id = tokenizer.vocab["[CLS]"], tokenizer.vocab["[SEP]"]
     train_step = classify.make_train_step(cfg, pw, cls_id, sep_id)
     multi_step = MultiStep(train_step, max(1, args.steps_per_dispatch))
@@ -249,10 +263,16 @@ def train(args) -> dict:
     best_metric, n_no_improve = -np.inf, 0
     rows: List[dict] = []
 
-    def save(epoch: int) -> str:
+    def save(epoch: int, best: bool = False) -> str:
+        """model.<epoch>.bin (and its copy model.best.bin) in the
+        single-process layout, written by rank 0."""
         path = os.path.join(savedir, f"model.{epoch}.bin")
-        torch.save({k: v.detach().cpu() for k, v in
-                    state.model.state_dict().items()}, path)
+        sd = parallel.full_state_dict(state.model)
+        if main_rank:
+            torch.save(sd, path)
+            if best:
+                shutil.copyfile(path, best_path)
+        parallel.barrier()
         return path
 
     try:
@@ -262,12 +282,13 @@ def train(args) -> dict:
                                       epoch < cfg.freeze_txt)
                 t0 = time.perf_counter()
                 agg: Dict[str, List[torch.Tensor]] = {}
-                for batch, is_group in dispatch_loader(train_loader, device,
-                                                       k=multi_step.k):
+                rows_of = (parallel.local_rows(b) for b in train_loader)
+                for i, (batch, is_group) in enumerate(dispatch_loader(
+                        rows_of, device, k=multi_step.k)):
                     m = (multi_step if is_group else train_step)(
                         state, batch, generator)
                     collect_metrics(agg, m, is_group)
-                    if guard.triggered:
+                    if preempt.agreed(guard, i):
                         # save-only (JAX :253-291): a run is short and
                         # early-stopped, so it keeps the work, no position
                         path = save(epoch)
@@ -300,13 +321,13 @@ def train(args) -> dict:
                            improved=bool(improved))
                 rows.append(row)
                 logger.info("epoch %d: %s", epoch, row)
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(row) + "\n")
-                _write_csv(os.path.join(savedir, f"{args.save_name}.csv"),
-                           metrics, cfg.task_type)
-                path = save(epoch)
-                if improved:
-                    shutil.copyfile(path, best_path)
+                if main_rank:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(row) + "\n")
+                    _write_csv(os.path.join(savedir,
+                                            f"{args.save_name}.csv"),
+                               metrics, cfg.task_type)
+                save(epoch, best=improved)
                 if n_no_improve >= cfg.patience:
                     logger.info("No improvement. Breaking out of loop.")
                     break
@@ -316,7 +337,11 @@ def train(args) -> dict:
     test = None
     if args.do_test:
         if os.path.exists(best_path):
-            load_mmbt_checkpoint(state.model, best_path)
+            if state.model.tp_dims:
+                parallel.load_full(state.model, torch.load(
+                    best_path, map_location="cpu", weights_only=True))
+            else:
+                load_mmbt_checkpoint(state.model, best_path)
             logger.info("loaded %s for test", best_path)
         test_loader = BatchLoader(
             dataset(os.path.join(args.data_path, args.Test_dset_name)),
@@ -324,8 +349,9 @@ def train(args) -> dict:
         test, _, _ = classify.evaluate(eval_step, state.model, test_loader,
                                        cfg.task_type)
         logger.info("test: %s", test)
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({"test": test}) + "\n")
+        if main_rank:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"test": test}) + "\n")
     return {"epochs": rows, "test": test, "merged": merged}
 
 

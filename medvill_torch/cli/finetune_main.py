@@ -41,10 +41,16 @@ preemption marker names N, re-enters N at the marker's batch
 step ends, the state is saved under the epoch with a marker of the host
 batches trained, and the process returns (exit 0).
 
+Scale-out (``parallel.py``), as in the pretrain CLI: under ``torchrun``
+each rank reads its shard of the records (``--train_batch_size`` per
+process), ``--model_parallel`` and ``--zero1`` lay the model and the
+BertAdam moments out over the ranks, drop-worst keeps the global batch's
+best, rank 0 writes, and SIGTERM on any rank stops every rank at the same
+dispatch.
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
 without one.  Not ported (ROADMAP.md): an orbax directory as
-``--model_recover_path`` and the mesh/parallelism flags (with them
-``global_any``); argparse rejects them like any unknown flag.
+``--model_recover_path``; argparse rejects it like any unknown flag.
 """
 from __future__ import annotations
 
@@ -60,7 +66,9 @@ import torch
 from medvill_torch import checkpoint as ckpt
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import recover_pretrain_into_vlp
-from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
+from medvill_torch import parallel
+from medvill_torch.cli import (add_parallelism_args, collect_metrics,
+                               make_tokenizer, str2bool)
 from medvill_torch.config import (BertConfig, FinetuneConfig,
                                   ImageEncoderConfig)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
@@ -168,6 +176,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "same mechanism as the pretrain CLI's flag")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    add_parallelism_args(p)
     return p
 
 
@@ -242,6 +251,7 @@ def _resume(cfg: FinetuneConfig, state, generator, loader,
             start, skip = recover, int(marker["batches_done"])
             logger.info("preemption marker: re-entering epoch %d at host "
                         "batch %d", recover, skip)
+        parallel.barrier()  # every rank has read the marker
         preempt.clear_marker(cfg.output_dir)
     return loader.resume_at(start, skip)
 
@@ -249,15 +259,18 @@ def _resume(cfg: FinetuneConfig, state, generator, loader,
 def train(args) -> dict:
     """Runs the epochs and the VQA eval; returns {"epochs": one metrics row
     per epoch, "vqa_eval": the eval's accuracies or None}."""
-    device = resolve_device(args.device)
+    device = parallel.initialize(resolve_device(args.device))
     set_seed(args.seed)
     if args.from_scratch:
         args.model_recover_path = None
     cfg = config_from_args(args)
+    parallel.configure(args.model_parallel, cfg.bert.num_attention_heads)
+    main_rank = parallel.is_main()
     os.makedirs(cfg.output_dir, exist_ok=True)
     logger = create_logger(os.path.join(cfg.output_dir, args.log_file), args)
-    with open(os.path.join(cfg.output_dir, "opt.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if main_rank:
+        with open(os.path.join(cfg.output_dir, "opt.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
     tokenizer = make_tokenizer(args.vocab_file, remap_unused=True)
     if cfg.task == "vqa":
         ds = VQADataset(cfg, tokenizer, args.src_file, split="train",
@@ -268,7 +281,8 @@ def train(args) -> dict:
             src = args.file_valid_jpgs
         ds = Img2TxtDataset(src, tokenizer, cfg, seed=cfg.seed)
     loader = BatchLoader(ds, cfg.batch_size, shuffle=True, seed=cfg.seed,
-                         workers=args.num_workers)
+                         workers=args.num_workers,
+                         **parallel.loader_shards())
     t_total = max(1, len(loader) * cfg.epochs
                   // cfg.gradient_accumulation_steps)
     state = ft.init_state(cfg, t_total, device=device)
@@ -294,6 +308,7 @@ def train(args) -> dict:
         if missing:
             logger.info("%d keys keep their random init: %s", len(missing),
                         missing)
+    parallel.place(state, args.zero1)
     metrics_path = os.path.join(cfg.output_dir, "metrics.jsonl")
     k = max(1, args.steps_per_dispatch)
     step = multi = ratio_of_multi = None
@@ -328,7 +343,7 @@ def train(args) -> dict:
                                                       generator)
                     collect_metrics(agg, m, is_group)
                     done += k if is_group else 1
-                    if guard.triggered:
+                    if preempt.agreed(guard):
                         # the resume scan re-enters this epoch at this batch
                         if device.type == "cuda":
                             torch.cuda.synchronize(device)
@@ -345,11 +360,13 @@ def train(args) -> dict:
                            epoch_time_s=time.perf_counter() - t0,
                            drop_worst_ratio=ratio)
                 row["examples_per_s"] = (row["micro_steps"] * cfg.batch_size
+                                         * loader.num_shards
                                          / row["epoch_time_s"])
                 rows.append(row)
                 logger.info("epoch %d: %s", epoch, row)
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(row) + "\n")
+                if main_rank:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(row) + "\n")
                 save(epoch)
     finally:
         loader.close()
@@ -362,8 +379,9 @@ def train(args) -> dict:
             BatchLoader(test_ds, cfg.batch_size, shuffle=False,
                         drop_last=False))
         logger.info("vqa eval: %s", results)
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({"vqa_eval": results}) + "\n")
+        if main_rank:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"vqa_eval": results}) + "\n")
     return {"epochs": rows, "vqa_eval": results}
 
 

@@ -47,12 +47,19 @@ not stopped.
 count, 256 at 512 px): nothing is frozen and no pixels are drawn, and
 ``--resnet_init_path`` raises, as in the JAX CLI.
 
+Scale-out (``parallel.py``): under a launcher (``torchrun
+--nproc_per_node N``) each rank drives ``cuda:LOCAL_RANK`` and reads its
+shard of the dataset (``BatchLoader(num_shards, shard_index)``), so
+``--batch_size`` is the batch of one process, as in JAX's multi-host
+runs; ``--model_parallel M`` shards the joint encoder over M ranks and
+``--zero1 true`` the AdamW moments over the data ranks.  Rank 0 logs and
+writes the files, in the single-process format, and SIGTERM on any rank
+stops every rank at the same dispatch (``preempt.agreed``).
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): the mesh/parallelism flags (and
-with them ``global_any``, the hosts' agreement to stop) and an orbax
-directory as ``--pre_trained_model_path``
-(``medvill_tpu.cli.export_main`` converts one); argparse rejects them like
-any unknown flag.
+without one.  Not ported (ROADMAP.md): an orbax directory as
+``--pre_trained_model_path`` (``medvill_tpu.cli.export_main`` converts
+one); argparse rejects it like any unknown flag.
 """
 from __future__ import annotations
 
@@ -66,7 +73,9 @@ import torch
 
 from medvill_torch import checkpoint as ckpt
 from medvill_torch import torch_init
-from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
+from medvill_torch import parallel
+from medvill_torch.cli import (add_parallelism_args, collect_metrics,
+                               make_tokenizer, str2bool)
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   PretrainConfig)
 from medvill_torch.convert import load_cxrbert_checkpoint
@@ -176,6 +185,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-step dispatch.")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    add_parallelism_args(p)
     return p
 
 
@@ -273,6 +283,7 @@ def _resume(cfg: PretrainConfig, state, generator, loader,
     start, skip = int(marker["epoch"]), int(marker["batches_done"])
     ckpt.restore_training_state(cfg.output_path, start, state, generator,
                                 loader)
+    parallel.barrier()  # every rank has read the marker
     preempt.clear_marker(cfg.output_path)
     logger.info("resuming preempted run from %s: epoch %d, %d host batches "
                 "already trained", cfg.output_path, start, skip)
@@ -321,9 +332,11 @@ def _evaluate(eval_step, state, test_loader, test_ds, seed: int,
 def train(args) -> List[dict]:
     """Runs the epochs; returns one metrics row per epoch trained (none
     after a preemption in this process's first epoch)."""
-    device = resolve_device(args.device)
+    device = parallel.initialize(resolve_device(args.device))
     set_seed(args.seed)
     cfg = config_from_args(args)
+    parallel.configure(args.model_parallel, cfg.bert.num_attention_heads)
+    main_rank = parallel.is_main()
     os.makedirs(cfg.output_path, exist_ok=True)
     logger = create_logger(os.path.join(cfg.output_path, "train.log"), args)
 
@@ -331,7 +344,8 @@ def train(args) -> List[dict]:
     dataset = CXRPretrainDataset(cfg.train_dataset, tokenizer, cfg,
                                  seed=cfg.seed)
     loader = BatchLoader(dataset, cfg.batch_size, shuffle=True,
-                         seed=cfg.seed, workers=cfg.num_workers)
+                         seed=cfg.seed, workers=cfg.num_workers,
+                         **parallel.loader_shards())
     if len(loader) == 0:
         raise ValueError(f"{cfg.train_dataset}: {len(dataset)} records make "
                          f"no batch of {cfg.batch_size}")
@@ -345,6 +359,7 @@ def train(args) -> List[dict]:
     generator = torch.Generator().manual_seed(cfg.seed)
     _initialize(args, cfg, state, generator, logger)
     start_epoch, skip = _resume(cfg, state, generator, loader, logger)
+    parallel.place(state, args.zero1)
     # a consumed mid-epoch marker left epoch start_epoch's files holding a
     # mid-epoch state: that epoch's end overwrites them whatever
     # --save_interval says
@@ -372,12 +387,13 @@ def train(args) -> List[dict]:
                 batches = iter(dispatch_loader(loader, device, k=k))
                 trace = None
                 for i, (batch, is_group) in enumerate(batches):
-                    if args.profile_dir and epoch == 0 and i == 2:
+                    if args.profile_dir and epoch == 0 and i == 2 \
+                            and main_rank:
                         trace = _start_trace(device)
                     m = (multi_step if is_group else train_step)(
                         state, batch, generator)
                     done += k if is_group else 1
-                    if guard.triggered:
+                    if preempt.agreed(guard):
                         # the step ends, the prefetch stops; the batches it
                         # loaded ahead are dropped: the marker counts the
                         # trained ones
@@ -403,32 +419,35 @@ def train(args) -> List[dict]:
                                     m["loss"].float().reshape(-1)[-1].item())
                     if args.watch_interval and i % args.watch_interval == 0:
                         # off the hot path: one read of the device
-                        with open(os.path.join(cfg.output_path,
-                                               WATCH_FILE), "a") as f:
-                            f.write(json.dumps(dict(
-                                watch_norms(state.model, state.tx),
-                                epoch=epoch, step=epoch * 10 ** 6 + i * k))
-                                + "\n")
+                        norms = watch_norms(state.model, state.tx)
+                        if main_rank:
+                            with open(os.path.join(cfg.output_path,
+                                                   WATCH_FILE), "a") as f:
+                                f.write(json.dumps(dict(
+                                    norms, epoch=epoch,
+                                    step=epoch * 10 ** 6 + i * k)) + "\n")
                 if trace is not None:
                     _stop_trace(trace, device, args.profile_dir, logger)
                 row = _epoch_row(agg)  # reads the device: the epoch ended
                 row.update(epoch=epoch,
                            epoch_time_s=time.perf_counter() - t0)
                 row["pairs_per_s"] = (row["micro_steps"] * cfg.batch_size
+                                      * loader.num_shards
                                       / row["epoch_time_s"])
                 if test_loader is not None:
                     row.update(_evaluate(eval_step, state, test_loader,
                                          test_ds, cfg.seed + 1, device))
                 rows.append(row)
                 logger.info("epoch %d done: %s", epoch, row)
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(row) + "\n")
+                if main_rank:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(row) + "\n")
                 save_now = ((epoch + 1) % max(1, args.save_interval) == 0
                             or epoch + 1 == cfg.epochs
                             or epoch == force_save_epoch)
                 if save_now:
                     save(epoch)
-                if guard.triggered and epoch + 1 < cfg.epochs:
+                if preempt.agreed(guard) and epoch + 1 < cfg.epochs:
                     # preempted in the eval or the save: the epoch is done
                     if not save_now:
                         save(epoch)

@@ -41,9 +41,18 @@ for ``--load_pretrained_model``, checkpoints in the CNN_BERT layout).
 SIGTERM ends training after the current micro-step with the epoch's
 checkpoint saved (``utils/preempt.py``, save-only as in JAX).
 
+Scale-out (``parallel.py``): under ``torchrun`` ``--batch_size`` stays the
+global batch, as on JAX's mesh: every rank builds it and trains on its
+data rank's block of rows (``parallel.local_rows``; the data ranks must
+divide its 2 x ``--batch_size`` rows, as JAX's placement requires);
+``--model_parallel`` and ``--zero1`` lay the model and the AdamW moments
+out over the ranks;
+every rank scores the whole pools (the metrics are the single-process
+ones), rank 0 writes the files, and SIGTERM on any rank stops every rank
+at the same batch, polled every ``preempt.POLL_EVERY`` batches.
+
 It runs on the card unless ``--device cpu`` is given, and raises on a host
-without one.  Not ported (ROADMAP.md): the mesh/parallelism flags;
-argparse rejects them like any unknown flag.
+without one.
 """
 from __future__ import annotations
 
@@ -58,7 +67,9 @@ import torch
 
 from medvill_torch import torch_init
 from medvill_torch.checkpoint import restore_pretrained
-from medvill_torch.cli import collect_metrics, make_tokenizer, str2bool
+from medvill_torch import parallel
+from medvill_torch.cli import (add_parallelism_args, collect_metrics,
+                               make_tokenizer, str2bool)
 from medvill_torch.config import (BertConfig, ImageEncoderConfig,
                                   RetrievalConfig)
 from medvill_torch.data.pretrain import BatchLoader, dispatch_loader
@@ -122,6 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "host/runtime overhead; no reference equivalent")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    add_parallelism_args(p)
     return p
 
 
@@ -151,17 +163,25 @@ def _pools(args):
 
 
 def _save(model: torch.nn.Module, path: str) -> None:
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
-               path)
+    """The model in the single-process layout, written by rank 0 (every
+    rank calls it)."""
+    sd = parallel.full_state_dict(model)
+    if parallel.is_main():
+        torch.save(sd, path)
+    parallel.barrier()
 
 
 def train(args) -> dict:
     """Trains and evaluates; returns {"epochs": one row per epoch, "test":
     the test results or None, "loaded": the checkpoint file read or
     None}."""
-    device = resolve_device(args.device)
+    device = parallel.initialize(resolve_device(args.device))
     set_seed(args.seed)
     cfg = config_from_args(args)
+    parallel.configure(args.model_parallel, cfg.bert.num_attention_heads)
+    # a batch of B pairs is 2B rows: B positives, then B negatives
+    parallel.check_global_batch(2 * cfg.batch_size, "2 x --batch_size")
+    main_rank = parallel.is_main()
     os.makedirs(cfg.output_path, exist_ok=True)
     logger = create_logger(os.path.join(cfg.output_path, "train.log"), args)
     tokenizer = make_tokenizer(args.vocab_file, remap_unused=False)
@@ -175,6 +195,7 @@ def train(args) -> dict:
             torch_init.init_cxrbert_from_torch if cxr_bert
             else torch_init.init_cnn_bert_from_torch, logger,
             "load_pretrained_model")
+    parallel.place(state, args.zero1)
     if cxr_bert:
         train_step = retrieve.make_train_step(cfg)
         score_step = retrieve.make_score_step(cfg)
@@ -187,8 +208,9 @@ def train(args) -> dict:
     metrics_path = os.path.join(cfg.output_path, "metrics.jsonl")
 
     def log_row(row: dict) -> None:
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps(row) + "\n")
+        if main_rank:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
 
     def evaluate(path: str) -> dict:
         ds = CXRRetrievalDataset(path, tokenizer, cfg, is_train=False,
@@ -199,7 +221,9 @@ def train(args) -> dict:
         try:
             res = retrieve.run_retrieval_eval(
                 score_step, state.model, loader, cfg.eval_len_size,
-                cfg.direction, rank_dump_path=rank_dump, records=ds.data)
+                cfg.direction,
+                rank_dump_path=rank_dump if main_rank else None,
+                records=ds.data)
         finally:
             loader.close()
         res["candidates_per_s"] = len(ds) / (time.perf_counter() - t0)
@@ -222,20 +246,20 @@ def train(args) -> dict:
             order = np.arange(len(train_ds))
             np.random.default_rng(cfg.seed + epoch).shuffle(order)
             for i in range(len(train_ds) // B):
-                yield collate_pairs([train_ds[int(j)]
-                                     for j in order[i * B:(i + 1) * B]])
+                yield parallel.local_rows(collate_pairs(
+                    [train_ds[int(j)] for j in order[i * B:(i + 1) * B]]))
 
         generator = torch.Generator().manual_seed(cfg.seed)
         with preempt.PreemptionGuard(logger=logger) as guard:
             for epoch in range(cfg.epochs):
                 t0 = time.perf_counter()
                 agg: Dict[str, List[torch.Tensor]] = {}
-                for batch, is_group in dispatch_loader(
-                        pair_batches(epoch), device, k=multi_step.k):
+                for i, (batch, is_group) in enumerate(dispatch_loader(
+                        pair_batches(epoch), device, k=multi_step.k)):
                     m = (multi_step if is_group else train_step)(
                         state, batch, generator)
                     collect_metrics(agg, m, is_group)
-                    if guard.triggered:
+                    if preempt.agreed(guard, i):
                         _save(state.model, os.path.join(
                             cfg.output_path, f"model.{epoch}.bin"))
                         logger.info("preempted (signal %s): saved epoch %d "
@@ -267,9 +291,10 @@ def train(args) -> dict:
         test = evaluate(test_path)
         speed = test.pop("candidates_per_s")
         logger.info("retrieval eval: %s", test)
-        with open(os.path.join(cfg.output_path, "eval_results.json"),
-                  "w") as f:
-            json.dump(test, f, indent=2)
+        if main_rank:
+            with open(os.path.join(cfg.output_path, "eval_results.json"),
+                      "w") as f:
+                json.dump(test, f, indent=2)
         log_row({"mrr": test["mrr"],
                  **test["hits"][f"{cfg.direction}_retrieval"],
                  "candidates_per_s": speed})

@@ -133,7 +133,13 @@ class BatchLoader:
     epoch is the same for any worker count; ``workers == 1`` draws from the
     dataset's shared sequential stream.  The shuffle order is numpy's
     ``default_rng(seed + epoch)``, as in the JAX package.  ``close`` stops
-    the thread pool.
+    the thread pool.  ``num_shards``/``shard_index`` give one rank of a
+    data-parallel run its share (medvill_tpu/data/pretrain.py:152,239-240):
+    ``order[shard_index::num_shards]`` after the shuffle every rank shares,
+    ``batch_size`` rows per rank and batch, and the global floor
+    ``len // (batch_size * num_shards)`` batches per epoch on every rank
+    (``drop_last=False`` with shards raises: the ranks' counts could
+    differ).
 
     ``skip_next(n)`` skips the first n batches of the next iteration only
     (mid-epoch resume, medvill_tpu/data/pretrain.py:191-209): the order is
@@ -153,7 +159,8 @@ class BatchLoader:
     begun and not finished before it runs as a skipped iteration)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, workers: int = 1, drop_last: bool = True):
+                 seed: int = 0, workers: int = 1, drop_last: bool = True,
+                 num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -161,6 +168,16 @@ class BatchLoader:
         self.epoch = 0
         self.workers = workers
         self.drop_last = drop_last
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        if not drop_last and num_shards > 1:
+            # per-shard ceil can differ across shards (9 samples, 2 shards,
+            # batch 4 -> 2 vs 1 batches): the ranks that ran out would
+            # leave the others waiting in a collective
+            raise ValueError(
+                "drop_last=False with num_shards>1 can yield unequal batch "
+                "counts across hosts; run full-coverage eval unsharded or "
+                "use drop_last=True for sharded loops")
         self._pool: Optional[ThreadPoolExecutor] = None
         self._skip = 0
         self._at_start = {"epoch": 0, "stream": None}
@@ -200,7 +217,8 @@ class BatchLoader:
 
     def __len__(self) -> int:
         if self.drop_last:
-            return len(self.dataset) // self.batch_size
+            # the global floor: every shard yields the same count
+            return len(self.dataset) // (self.batch_size * self.num_shards)
         return -(-len(self.dataset) // self.batch_size)
 
     def _fetch(self, idxs) -> List[Dict[str, np.ndarray]]:
@@ -231,6 +249,8 @@ class BatchLoader:
         # advanced before the fetches, as in the JAX package, so the
         # per-sample RNGs of epoch e are keyed by e + 1 there too
         self.epoch += 1
+        if self.num_shards > 1:
+            order = order[self.shard_index::self.num_shards]
         B = self.batch_size
         start, self._skip = self._skip, 0
         fetch = getattr(self.dataset, "fetch", None)

@@ -26,6 +26,16 @@ it has no counterpart here.
 The encoder takes an optional per-layer K/V cache that is written in place
 at ``cache_index`` (JAX writes a new array with ``dynamic_update_slice``);
 the updated caches are returned as well, so callers read like the JAX code.
+
+Tensor parallelism (``--model_parallel``, parallel.py): ``parallel.
+shard_state`` leaves each model rank a slice of the column-parallel
+``query``/``key``/``value`` and ``intermediate.dense`` (output features)
+and of the row-parallel ``BertSelfOutput.dense`` (input features), and sets
+``tp_group`` on their modules.  Their forwards then take the replicated
+input through Megatron's f (``parallel.copy_to_model``), attend over the
+local heads (``query.weight.shape[0] // head_dim`` of them), and sum the
+row-parallel product over the model group (g, ``reduce_from_model``)
+before its bias, which is added once.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from medvill_torch import parallel
 from medvill_torch.config import BertConfig
 from medvill_torch.ops.attention import mha_reference
 from medvill_torch.ops.dropout import DropoutRNG, dropout
@@ -113,6 +124,8 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
+    tp_group = None  # set by parallel.shard_state
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.cfg = cfg
@@ -134,7 +147,9 @@ class BertSelfAttention(nn.Module):
         ``make_attention_fn``)."""
         cfg = self.cfg
         B, L, _ = hidden.shape
-        shape = (B, L, cfg.num_attention_heads, cfg.head_dim)
+        heads = self.query.weight.shape[0] // cfg.head_dim  # local heads
+        shape = (B, L, heads, cfg.head_dim)
+        hidden = parallel.copy_to_model(hidden, self.tp_group)
         q = dense(self.query, hidden, self.dtype).view(shape)
         k = dense(self.key, hidden, self.dtype).view(shape)
         v = dense(self.value, hidden, self.dtype).view(shape)
@@ -150,7 +165,7 @@ class BertSelfAttention(nn.Module):
         else:
             ctx = attention_fn(q, k, v, bias, rng=rng,
                                deterministic=deterministic)
-        return ctx.reshape(B, L, cfg.hidden_size), kv_cache
+        return ctx.reshape(B, L, heads * cfg.head_dim), kv_cache
 
 
 class FusedDropAddLN(nn.LayerNorm):
@@ -181,7 +196,9 @@ class FusedDropAddLN(nn.LayerNorm):
 class BertSelfOutput(nn.Module):
     """dense -> (dropout) -> LayerNorm(x + residual).  Also serves as the
     FFN's ``output`` block (the reference's BertOutput has the same
-    shape)."""
+    shape).  Row-parallel under tensor parallelism."""
+
+    tp_group = None  # set by parallel.shard_state
 
     def __init__(self, cfg: BertConfig, in_features: int):
         super().__init__()
@@ -195,7 +212,12 @@ class BertSelfOutput(nn.Module):
     def forward(self, x: torch.Tensor, residual: torch.Tensor,
                 deterministic: bool = True,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        x = dense(self.dense, x, self.dtype)
+        if self.tp_group is None:
+            x = dense(self.dense, x, self.dtype)
+        else:
+            x = F.linear(x.to(self.dtype), self.dense.weight.to(self.dtype))
+            x = parallel.reduce_from_model(x, self.tp_group) \
+                + self.dense.bias.to(self.dtype)
         if isinstance(self.LayerNorm, FusedDropAddLN):
             return self.LayerNorm(x, residual, deterministic, rng)
         x = maybe_dropout(x, self.dropout_rate, deterministic, rng)
@@ -210,6 +232,8 @@ class BertAttention(nn.Module):
 
 
 class BertIntermediate(nn.Module):
+    tp_group = None  # set by parallel.shard_state
+
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.dtype = compute_dtype(cfg)
@@ -217,6 +241,7 @@ class BertIntermediate(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # exact erf-GELU in the compute dtype (medvill_tpu bert.py:273)
+        x = parallel.copy_to_model(x, self.tp_group)
         return F.gelu(dense(self.dense, x, self.dtype))
 
 

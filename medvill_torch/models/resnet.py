@@ -25,7 +25,9 @@ convolutions run NCHW inside.  Parameters sit under the reference's
   autograd saves the compute-dtype conv output and the per-channel f32
   mean and inverse std, nothing else, so a trained trunk keeps the bf16
   conv, ReLU and block outputs (and the max-pool indices) and no f32
-  copy of any activation.
+  copy of any activation.  Under data parallelism the batch statistics
+  are the global batch's (``parallel.sync_batch_norm``, which keeps the
+  same).
 - Convolutions run in ``dtype`` (bf16 when serving); the caller decides
   whether cuDNN may use TF32 for f32 convolutions.
 - ``fibers`` flattens the map; ``pooled_fibers`` and ``half_pooled_fibers``
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from medvill_torch import parallel
 from medvill_torch.data.images import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -65,8 +68,13 @@ def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, dtype: torch.dtype,
     w, b = bn.weight, bn.bias
     if x.dtype == torch.float64:
         w, b = w.double(), b.double()
-    y, mean, invstd = torch.native_batch_norm(x, w, b, None, None, True,
-                                              0.0, bn.eps)
+    if parallel.data_parallel():
+        # the statistics of the global batch (medvill_tpu/models/resnet.py:
+        # 79-82 under GSPMD), summed over the data group
+        y, mean, invstd = parallel.sync_batch_norm(x, w, b, bn.eps)
+    else:
+        y, mean, invstd = torch.native_batch_norm(x, w, b, None, None, True,
+                                                  0.0, bn.eps)
     with torch.no_grad():
         var = invstd.pow(-2).sub_(bn.eps).clamp_(min=0.0)
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)

@@ -55,6 +55,7 @@ from typing import Optional
 
 import torch
 
+from medvill_torch import parallel
 from medvill_torch.data import masks
 from medvill_torch.data.masks import FAMILY_PRETRAIN, FAMILY_SEQ2SEQ  # noqa: F401
 from medvill_torch.ops import build
@@ -395,6 +396,8 @@ def make_attention_fn(spec: torch.Tensor, img_block: int,
             if rng is None:
                 raise ValueError("attention dropout needs an rng")
             seed = rng.next_seed()
+            # heads are local under tensor parallelism: fold the model rank
+            seed = DeviceSeed(seed.base, parallel.model_seed_add(seed.add))
         return flash_mha(q, k, v, spec, img_block=img_block,
                          l_real=q.shape[1], family=family,
                          dropout_rate=dropout_rate, seed=seed,

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from medvill_torch import parallel
 from medvill_torch.config import ClassificationConfig
 from medvill_torch.eval.metrics import classification_metrics
 from medvill_torch.models.mmbt import MultimodalBertClf, full_spec
@@ -137,8 +138,10 @@ def make_train_step(cfg: ClassificationConfig,
     is the model's (``apply_freeze``)."""
 
     def loss_fn(model, batch, rng, pix):
-        loss, _ = loss_and_logits(model, batch, rng, cfg, pos_weight, cls_id,
-                                  sep_id)
+        loss, logits = loss_and_logits(model, batch, rng, cfg, pos_weight,
+                                       cls_id, sep_id)
+        if parallel.layout() is not None:  # this rank's share
+            loss = loss * parallel.batch_share(logits.shape[0], loss.device)
         return loss, {"loss": loss}
 
     return MicroStep(loss_fn)

@@ -56,6 +56,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from medvill_torch import parallel
 from medvill_torch.ops import flash_attention as fa
 from medvill_torch.ops import fused_ln
 from medvill_torch.ops.dropout import DropoutRNG
@@ -94,18 +95,26 @@ class MicroStep:
 
     def draw(self, generator: torch.Generator
              ) -> Tuple[Optional[torch.Tensor], int]:
-        """(pixel indices or None, dropout seed) of one micro-step."""
+        """(pixel indices or None, dropout seed) of one micro-step: every
+        rank draws the same, and the seed folds in the data rank
+        (``parallel.rank_seed``)."""
         pix = self.pixel_draw(generator) if self.pixel_draw else None
-        return pix, int(torch.randint(0, 2 ** 31, (), generator=generator))
+        return pix, parallel.rank_seed(
+            int(torch.randint(0, 2 ** 31, (), generator=generator)))
 
     def body(self, state, batch, rng: DropoutRNG,
              pix: Optional[torch.Tensor], apply: bool) -> Metrics:
-        """The device work of one micro-step: what a graph captures."""
+        """The device work of one micro-step: what a graph captures.  Under
+        data parallelism the loss is this rank's share of the global
+        batch's, and the update and the metrics are the global batch's:
+        the gradients are summed over the data group when the update
+        applies (``Accumulate.apply_device``), the metrics here."""
         loss, metrics = self.loss_fn(state.model, batch, rng, pix)
         loss.backward()
         if apply:
             state.tx.apply_device()
-        return {k: v.detach() for k, v in metrics.items()}
+        return parallel.sum_metrics({k: v.detach() for k, v in
+                                     metrics.items()})
 
     def run(self, state, batch, pix: Optional[torch.Tensor],
             seed: int) -> Metrics:

@@ -29,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from medvill_torch import parallel
 from medvill_torch.config import FinetuneConfig
 from medvill_torch.data.masks import NEG_BIAS, seq2seq_spec_dense
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
@@ -111,6 +112,10 @@ def finetune_loss_and_metrics(model: VLPForPreTraining, batch: Batch,
                        batch["segment_ids"], bias, **kw)
         target = batch["ans_target"]
         loss = bce_with_logits(logits, target)
+        if parallel.layout() is not None:
+            # this rank's share: the sharded loader gives each rank as
+            # many rows
+            loss = loss / parallel.layout().data
         score = torch.gather(target, 1, logits.argmax(-1, keepdim=True))
         return loss, {"vqa_loss": loss, "batch_score": score.sum(),
                       "n": torch.full((), logits.shape[0],

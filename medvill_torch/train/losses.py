@@ -10,7 +10,11 @@
 - ``drop_worst_normalize``: the masked-weight normalisation with
   Ruotian-Luo drop-worst: keep the ``int(B * (1 - ratio))`` examples of
   smallest summed loss, divide by their total weight + 1e-5 (reference:
-  model.py:1003-1010).
+  model.py:1003-1010).  Under data parallelism the
+  examples kept and the weight divided by are the global batch's: every
+  rank's summed losses are gathered, and each rank returns its kept
+  examples' share (medvill_tpu/train/losses.py:76-92 over the global
+  array).
 - ``bce_with_logits``: the VQA soft-target BCE, mean over every element
   (reference: model.py:944).
 - ``weighted_bce_with_logits``: ``BCEWithLogitsLoss(pos_weight=...)``, mean
@@ -25,6 +29,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from medvill_torch import parallel
 
 
 def cross_entropy_per_example(logits: torch.Tensor,
@@ -54,6 +60,16 @@ def drop_worst_normalize(loss: torch.Tensor, weights: torch.Tensor,
                          drop_worst_ratio: float) -> torch.Tensor:
     """loss [B, P], weights [B, P] -> scalar."""
     loss = loss * weights
+    if parallel.data_parallel():
+        per = loss.sum(-1)
+        every = parallel.gather_rows(per)
+        keep = int(every.shape[0] * (1.0 - drop_worst_ratio))
+        keep_idx = torch.topk(every, keep, largest=False).indices
+        denom = parallel.gather_rows(weights.sum(-1))[keep_idx].sum() + 1e-5
+        B, r = per.shape[0], parallel.layout().data_rank
+        kept = torch.zeros_like(every, dtype=torch.bool).index_fill_(
+            0, keep_idx, True)[r * B:(r + 1) * B]
+        return (torch.where(kept, per, 0.0) / denom).sum()
     keep = int(loss.shape[0] * (1.0 - drop_worst_ratio))
     keep_loss, keep_idx = torch.topk(loss.sum(-1), keep, largest=False)
     denom = weights.sum(-1)[keep_idx].sum() + 1e-5

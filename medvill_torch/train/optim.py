@@ -65,6 +65,8 @@ from typing import Iterable, List
 import torch
 from torch import nn
 
+from medvill_torch import parallel
+
 
 class AdamW(torch.optim.AdamW):
     """``torch.optim.AdamW`` with ``Accumulate``'s three parts; all of its
@@ -201,35 +203,45 @@ class BertAdam(torch.optim.Optimizer):
             self._update()
 
     def _update(self) -> None:
-        for group, lr in zip(self.param_groups, self._lr):
-            params = [p for p in group["params"] if p.requires_grad]
-            if not params:
-                continue
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
-            if self.max_grad_norm > 0:
-                norms = torch.stack(torch._foreach_norm(grads))
+        live = [[p for p in group["params"] if p.requires_grad]
+                for group in self.param_groups]
+        params = [p for ps in live for p in ps]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if self.max_grad_norm > 0:
+            # where the tensors lie over several ranks (parallel.place),
+            # each piece is clipped by its whole tensor's norm; every rank
+            # takes part in that sum, whatever it holds
+            whole = self.param_groups[0].get("whole")
+            norms = (whole.norms(params, grads) if whole is not None else
+                     torch.stack(torch._foreach_norm(grads)) if grads
+                     else None)
+            if norms is not None and grads:
                 clip = torch.clamp(self.max_grad_norm / (norms + 1e-6),
                                    max=1.0)
                 grads = torch._foreach_mul(grads, list(clip.unbind(0)))
-            for p in params:
+        i = 0
+        for group, lr, ps in zip(self.param_groups, self._lr, live):
+            if not ps:
+                continue
+            gs, i = grads[i:i + len(ps)], i + len(ps)
+            for p in ps:
                 if not self.state[p]:
                     self.state[p]["m"] = torch.zeros_like(p)
                     self.state[p]["v"] = torch.zeros_like(p)
-            m = [self.state[p]["m"] for p in params]
-            v = [self.state[p]["v"] for p in params]
+            m = [self.state[p]["m"] for p in ps]
+            v = [self.state[p]["v"] for p in ps]
             torch._foreach_mul_(m, self.b1)
-            torch._foreach_add_(m, grads, alpha=1.0 - self.b1)
+            torch._foreach_add_(m, gs, alpha=1.0 - self.b1)
             torch._foreach_mul_(v, self.b2)
-            torch._foreach_addcmul_(v, grads, grads, value=1.0 - self.b2)
+            torch._foreach_addcmul_(v, gs, gs, value=1.0 - self.b2)
             update = torch._foreach_sqrt(v)
             torch._foreach_add_(update, self.eps)
             update = torch._foreach_div(m, update)
             if group["weight_decay"] > 0:
-                torch._foreach_add_(update, params,
-                                    alpha=group["weight_decay"])
+                torch._foreach_add_(update, ps, alpha=group["weight_decay"])
             torch._foreach_mul_(update, lr)
-            torch._foreach_add_(params, update)
+            torch._foreach_add_(ps, update)
 
 
 class Accumulate:
@@ -244,6 +256,7 @@ class Accumulate:
         self.every = max(1, int(every))
         self.count = 0
         self.keep_grads = False
+        self.zero1 = None  # parallel.Zero1, set by parallel.place
 
     def applies_next(self) -> bool:
         """Whether the next ``step()`` applies the update."""
@@ -254,12 +267,21 @@ class Accumulate:
 
     @torch.no_grad()
     def apply_device(self) -> None:
-        grads = [p.grad for group in self.optimizer.param_groups
-                 for p in group["params"] if p.grad is not None]
+        if self.zero1 is None:
+            grads = [p.grad for p in self.params() if p.grad is not None]
+            # data parallelism: the ranks' gradients summed
+            parallel.all_reduce_grads(grads)
+        else:
+            self.zero1.reduce_scatter()
+            grads = [self.zero1.span_grad]
         if self.every > 1 and grads:
             torch._foreach_div_(grads, float(self.every))
         self.optimizer.device_step()
-        if self.keep_grads:
+        if self.zero1 is not None:
+            self.zero1.all_gather()
+            # the parameters' .grad are views of one buffer: kept, zeroed
+            self.zero1.flat_grad.zero_()
+        elif self.keep_grads:
             if grads:
                 torch._foreach_zero_(grads)
         else:
@@ -281,28 +303,65 @@ class Accumulate:
         self.finish(applied)
         return applied
 
-    def _params(self) -> List[nn.Parameter]:
+    def params(self) -> List[nn.Parameter]:
+        """The parameters the optimizer updates, whole (not ZeRO-1's
+        pieces; tensor-parallel slices as the model holds them)."""
+        if self.zero1 is not None:
+            return self.zero1.params
         return [p for group in self.optimizer.param_groups
                 for p in group["params"]]
 
+    def full_state(self) -> List[dict]:
+        """Per parameter of ``params()``, its optimizer state as one process
+        would hold it: ZeRO-1's spans gathered over the data ranks and
+        tensor-parallel slices over the model ranks (every rank calls it
+        alike).  Empty for a parameter not updated yet."""
+        params = self.params()
+        rows = (self.zero1.full_state() if self.zero1 is not None
+                else [self.optimizer.state.get(p, {}) for p in params])
+        return [{k: (parallel.full_param(p, v) if torch.is_tensor(v)
+                     and v.dim() and v.shape == p.shape else v)
+                 for k, v in row.items()} for p, row in zip(params, rows)]
+
     def state_dict(self) -> dict:
-        """See the module docstring; ``grads`` is None at a count of 0."""
-        opt, params = self.optimizer, self._params()
-        return {
-            "optimizer": type(opt).__name__,
-            "state": [{k: v.detach().cpu() if torch.is_tensor(v) else v
-                       for k, v in opt.state[p].items()} for p in params],
-            "host": opt.host_state(),
+        """See the module docstring; ``grads`` is None at a count of 0.
+        Under scale-out it is the single-process state of the global run
+        (``full_state``, the ranks' gradients summed), and every rank must
+        call it."""
+        params = self.params()
+
+        def cpu(v):
+            return v.detach().cpu() if torch.is_tensor(v) else v
+
+        def whole(p, g):
+            return None if g is None else cpu(parallel.full_param(p, g))
+
+        out = {
+            "optimizer": type(self.optimizer).__name__,
+            "state": [{k: cpu(v) for k, v in row.items()}
+                      for row in self.full_state()],
+            "host": self.optimizer.host_state(),
             "count": self.count,
-            "grads": [None if p.grad is None else p.grad.detach().cpu()
-                      for p in params] if self.count else None}
+            "grads": [whole(p, None if p.grad is None else
+                            parallel.data_sum(p.grad)) for p in params]
+            if self.count else None}
+        if self.count and parallel.data_parallel():
+            # each data rank's own sum so far, so that a resume at this
+            # layout sums the same terms in the same order
+            out["grads_ranks"] = [
+                [whole(p, g) for p, g in zip(params, gs)]
+                for gs in zip(*[parallel.data_parts(p.grad) for p in params])]
+        return out
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
         """``state_dict``'s output into this optimizer, in place where a
         tensor exists (see the module docstring); raises ValueError on
         another optimizer, parameter count or shape."""
-        opt, params = self.optimizer, self._params()
+        opt, params = self.optimizer, self.params()
+        if self.zero1 is not None:
+            raise ValueError("load the state before ZeRO-1 shards it "
+                             "(parallel.place)")
         if sd["optimizer"] != type(opt).__name__ \
                 or len(sd["state"]) != len(params):
             raise ValueError(
@@ -312,6 +371,14 @@ class Accumulate:
         on_device = {id(p): g.get("capturable", False) or g.get("fused", False)
                      for g in opt.param_groups for p in g["params"]}
         grads = sd["grads"] or [None] * len(params)
+        mine = parallel.my_state(None, sd.get("grads_ranks"))
+        if mine is not None:
+            grads = mine
+        elif parallel.layout() is not None and parallel.layout().data_rank:
+            # the file holds the ranks' summed gradients: one rank of the
+            # data group takes them, so the next sum gives them once
+            grads = [None if g is None else torch.zeros_like(g)
+                     for g in grads]
         for p, saved, g in zip(params, sd["state"], grads):
             live = opt.state[p]
             if not saved:

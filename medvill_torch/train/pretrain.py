@@ -32,6 +32,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from medvill_torch import parallel
 from medvill_torch.config import PretrainConfig
 from medvill_torch.models.cxrbert import CXRBERT
 from medvill_torch.models.seq2seq import init_weights
@@ -83,9 +84,13 @@ def sample_pixel_indices(generator: torch.Generator, num_fibers: int,
     return torch.sort(perm[:num_image_embeds]).values
 
 
-def _mlm_ce(logits: torch.Tensor, labels: torch.Tensor):
+def _mlm_ce(logits: torch.Tensor, labels: torch.Tensor,
+            across_ranks: bool = False):
     """Sum-then-mean CE over the labels that are not -100, with the count of
-    correct argmaxes and of labels."""
+    correct argmaxes and of labels.  ``across_ranks``: the mean is over the
+    labels of the global batch (their count summed over the data group),
+    as JAX takes it over the global array (medvill_tpu/train/losses.py:
+    35-36); each rank has its own count."""
     valid = labels != -100
     safe = torch.where(valid, labels, 0)
     logz = torch.logsumexp(logits, dim=-1)
@@ -93,11 +98,13 @@ def _mlm_ce(logits: torch.Tensor, labels: torch.Tensor):
     nll = torch.where(valid, logz - gold, 0.0).sum()
     n = valid.sum()
     correct = ((logits.argmax(-1) == labels) & valid).sum()
-    return nll / n.clamp(min=1), correct, n
+    total = parallel.data_sum(n) if across_ranks else n
+    return nll / total.clamp(min=1), correct, n
 
 
 def _gathered_mlm_loss(model: CXRBERT, txt_hidden: torch.Tensor,
-                       txt_labels: torch.Tensor, bound: int):
+                       txt_labels: torch.Tensor, bound: int,
+                       across_ranks: bool = False):
     """The MLM loss over the first ``bound`` labeled positions of each row
     (labeled positions first, original order kept: a stable argsort)."""
     valid = txt_labels != -100
@@ -105,7 +112,7 @@ def _gathered_mlm_loss(model: CXRBERT, txt_hidden: torch.Tensor,
     idx = order[:, :bound]
     g_h = torch.take_along_dim(txt_hidden, idx.unsqueeze(-1), dim=1)
     g_l = torch.take_along_dim(txt_labels, idx, dim=1)
-    return _mlm_ce(model.mlm_chunk(g_h).float(), g_l)
+    return _mlm_ce(model.mlm_chunk(g_h).float(), g_l, across_ranks)
 
 
 def pretrain_loss_and_metrics(model: CXRBERT, batch: Batch,
@@ -132,6 +139,7 @@ def pretrain_loss_and_metrics(model: CXRBERT, batch: Batch,
 
     metrics: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=sequence.device)
+    across = train and parallel.layout() is not None
     if cfg.mlm_task:
         # image positions carry no labels (all -100): project text only
         I2 = cfg.image.num_image_embeds + 2
@@ -140,10 +148,10 @@ def pretrain_loss_and_metrics(model: CXRBERT, batch: Batch,
         bound = cfg.mlm_gather_bound
         if bound and bound < txt_hidden.shape[1]:
             loss, correct, n = _gathered_mlm_loss(model, txt_hidden,
-                                                  txt_labels, bound)
+                                                  txt_labels, bound, across)
         else:
             loss, correct, n = _mlm_ce(model.mlm_chunk(txt_hidden).float(),
-                                       txt_labels)
+                                       txt_labels, across)
         total = total + loss
         metrics.update(mlm_loss=loss, mlm_correct=correct, mlm_total=n)
     if cfg.itm_task:
@@ -152,6 +160,10 @@ def pretrain_loss_and_metrics(model: CXRBERT, batch: Batch,
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels.unsqueeze(-1)).squeeze(-1)
         loss = (logz - gold).mean()
+        if across:
+            # this rank's share: the sharded loader gives each rank as
+            # many rows
+            loss = loss / parallel.layout().data
         total = total + loss
         n = torch.full((), labels.shape[0], device=labels.device)
         metrics.update(itm_loss=loss,

@@ -42,6 +42,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from medvill_torch import parallel
 from medvill_torch.config import RetrievalConfig
 from medvill_torch.eval.metrics import compute_ranks, evaluate_retrieval
 from medvill_torch.models.cnn_bert import CNNBert
@@ -79,12 +80,17 @@ def init_state(cfg: RetrievalConfig, cxr_bert: bool = True,
 
 def itm_loss(logits: torch.Tensor, labels: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean CE over 2-class logits in f32, argmax accuracy)."""
+    """(mean CE over 2-class logits in f32, argmax accuracy); under data
+    parallelism both are this rank's shares of the global batch's."""
     logits = logits.float()
     labels = labels.long()
     gold = torch.gather(logits, -1, labels.unsqueeze(-1)).squeeze(-1)
     loss = (torch.logsumexp(logits, dim=-1) - gold).mean()
-    return loss, (logits.argmax(-1) == labels).float().mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    if parallel.layout() is not None:
+        share = parallel.batch_share(labels.shape[0], loss.device)
+        loss, acc = loss * share, acc * share
+    return loss, acc
 
 
 def _attention_fn(cfg: RetrievalConfig, spec: torch.Tensor, rate: float):

@@ -12,6 +12,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from medvill_torch import parallel
+
 
 class ElapsedFormatter(logging.Formatter):
     """Prefix records with the wall clock and the time since creation."""
@@ -33,6 +35,10 @@ def create_logger(filepath: Optional[str] = None,
     logger = logging.getLogger("medvill_torch")
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
+    if not parallel.is_main():
+        # scale-out: rank 0 logs; the others report only what goes wrong
+        logger.setLevel(logging.WARNING)
+        filepath, args = None, None
     fmt = ElapsedFormatter()
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
@@ -64,15 +70,18 @@ def watch_norms(model: torch.nn.Module, tx=None) -> Dict[str, float]:
     and, with ``tx`` (the run's ``train.optim.Accumulate``),
     ``watch/grad_ema_norm``, the norm of Adam's first moments (AdamW's
     ``exp_avg``, BertAdam's ``m``; 0 before the first update).  One read
-    from the device; the CLI calls it off the hot path."""
-    params = dict(model.named_parameters())
+    from the device; the CLI calls it off the hot path.  Under scale-out
+    the norms are the whole model's (tensor-parallel slices and ZeRO-1
+    chunks gathered), and every rank must call it."""
+    params = {n: parallel.full_param(p, p.detach())
+              for n, p in model.named_parameters()}
     norms = {"watch/param_norm": _norm(list(params.values()))}
     for top in sorted({name.split(".")[0] for name in params}):
         norms[f"watch/param_norm/{top}"] = _norm(
             [p for name, p in params.items()
              if name.split(".")[0] == top])
     if tx is not None:
-        moments = [s[k] for s in tx.optimizer.state.values()
+        moments = [s[k] for s in tx.full_state()
                    for k in ("exp_avg", "m") if k in s]
         # zero before the first update, as JAX's zero-initialized moments
         norms["watch/grad_ema_norm"] = (

@@ -19,9 +19,13 @@ import signal
 import threading
 from typing import Iterable, Optional
 
+from medvill_torch import parallel
+
 PREEMPT_FILE = "preempt.json"
-# the JAX package's multi-host collective-poll cadence (every POLL_EVERY
-# batches); the port runs one process and reads the flag every batch
+# the multi-process collective-poll cadence of the classification and
+# retrieval CLIs (every POLL_EVERY batches, as the JAX package's); one
+# process reads its flag every batch, and the pretrain and finetune CLIs
+# poll at every dispatch
 POLL_EVERY = 8
 
 
@@ -74,6 +78,20 @@ class PreemptionGuard:
         return False
 
 
+def agreed(guard: PreemptionGuard, batch_idx: Optional[int] = None) -> bool:
+    """Whether to stop here: the guard's flag, OR-ed over every rank under
+    ``torch.distributed`` (``parallel.global_any``, medvill_tpu/core/
+    mesh.py:228), so a SIGTERM on one rank stops every rank at the same
+    boundary.  With ``batch_idx`` (the classification and retrieval CLIs)
+    a multi-rank run polls only every ``POLL_EVERY`` batches, gated on
+    that shared counter; one process reads its flag every time."""
+    if not parallel.multi_process():
+        return guard.triggered
+    if batch_idx is not None and (batch_idx + 1) % POLL_EVERY:
+        return False
+    return parallel.global_any(guard.triggered)
+
+
 def write_marker(output_path: str, epoch: int, batches_done: int) -> str:
     """Record the interrupted position next to the checkpoint.  A resume
     run consumes (and deletes) this to skip ``batches_done`` host batches
@@ -83,8 +101,11 @@ def write_marker(output_path: str, epoch: int, batches_done: int) -> str:
     trainers only save after a ``global_any`` agreement), so concurrent
     writers are benign as long as each write is atomic — write to a
     per-process temp file and ``os.replace`` it in, so no reader ever
-    sees a torn/partial JSON."""
+    sees a torn/partial JSON.  Under ``torch.distributed`` rank 0 alone
+    writes it."""
     path = os.path.join(os.path.abspath(output_path), PREEMPT_FILE)
+    if not parallel.is_main():
+        return path
     tmp = "%s.tmp.%d" % (path, os.getpid())
     with open(tmp, "w") as f:
         json.dump({"epoch": int(epoch), "batches_done": int(batches_done)},

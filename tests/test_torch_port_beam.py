@@ -20,6 +20,7 @@ from medvill_tpu.train import finetune as ft
 from tests.test_beam_oracle import reference_beam_search
 from tests.torch_port_support import (IMG, VOCAB, finetune_config, jax_vlp,
                                       torch_vlp)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 T, K, B = 6, 3, 2
 CLS, SEP, MASK = 2, 3, 4

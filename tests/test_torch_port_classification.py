@@ -32,6 +32,7 @@ from medvill_tpu.train import classify as jclf
 from medvill_tpu.train import optim as joptim
 from medvill_tpu.train.pretrain import TrainState
 from tests.torch_port_support import perturb, random_batch_stats
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 IMG = 64
 VOCAB = 64

@@ -46,6 +46,7 @@ from medvill_tpu.eval import metrics as jmetrics
 from medvill_tpu.train import classify as jclf
 from medvill_tpu.train import pretrain as jpre
 from tests.torch_port_support import perturb, random_batch_stats
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 WORDS = [f"word{i}" for i in range(50)]
 LABELS = ["'A'", "'B'", "'C'", "'D'"]
@@ -252,8 +253,7 @@ def test_classification_cli_end_to_end_on_cpu(tmp_path):
     the merge, a finite train loss and metrics, the CSV, model.0.bin and
     model.best.bin in the MMBT layout (loading strictly), metrics.jsonl
     with the throughput field and the test row; --device defaults to cuda;
-    the unported flags are refused, and a --loaddir without checkpoints
-    raises."""
+    the mesh flags parse, and a --loaddir without checkpoints raises."""
     d = str(tmp_path)
     vocab = _clf_fixture(d)
     pre = tmp_path / "pre"
@@ -292,9 +292,9 @@ def test_classification_cli_end_to_end_on_cpu(tmp_path):
     assert load_mmbt_checkpoint(model, str(run / "model.best.bin")) == []
     assert classification_main.build_parser().parse_args(
         argv[:-2]).device == "cuda"
-    for flag in ("--model_parallel",):
-        with pytest.raises(SystemExit):
-            classification_main.build_parser().parse_args(argv + [flag, "1"])
+    mesh_args = classification_main.build_parser().parse_args(
+        argv + ["--model_parallel", "2", "--zero1", "true"])
+    assert (mesh_args.model_parallel, mesh_args.zero1) == (2, True)
     with pytest.raises(FileNotFoundError):
         classification_main.main(argv[:4] + ["--savedir", str(tmp_path / "x"),
                                              "--loaddir", d] + CLF_ARGS)
@@ -314,9 +314,7 @@ def test_classification_cli_freeze_all_and_task_type():
     from medvill_tpu.cli.classification_main import build_parser
     jargs = vars(build_parser().parse_args(argv))
     targs = vars(classification_main.build_parser().parse_args(argv))
-    unported = {"model_parallel", "zero1"}
-    assert {k: v for k, v in jargs.items() if k not in unported} == \
-        {k: v for k, v in targs.items() if k != "device"}
+    assert jargs == {k: v for k, v in targs.items() if k != "device"}
 
 
 def _record_batches(monkeypatch, module, serial: bool) -> list:

@@ -11,6 +11,7 @@ from medvill_torch.models.seq2seq import VLPForPreTraining
 from medvill_tpu.core.torch_export import export_vlp_state_dict
 from tests.torch_port_support import (finetune_config, jax_vlp, port_config,
                                       torch_vlp)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ from medvill_torch.models import decoder as tdec
 from medvill_tpu.models import decoder as jdec
 from medvill_tpu.train import finetune as ft
 from tests.torch_port_support import IMG, finetune_config, jax_vlp, torch_vlp
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 T = 5
 CLS, SEP, MASK = 2, 3, 4

@@ -55,6 +55,7 @@ from tests.test_torch_port_finetune import base  # noqa: F401 (fixture)
 from tests.test_torch_port_finetune_data import TINY, _write_reports
 from tests.torch_port_support import (perturb, random_batch_stats,
                                       sub_state_dict)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 IMG = 64
 

@@ -35,6 +35,7 @@ from medvill_tpu.train import optim as joptim
 from medvill_tpu.train.pretrain import TrainState
 from tests.torch_port_support import (IMG, VOCAB, finetune_config, perturb,
                                       random_batch_stats)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 ANSWERS = 7
 MODES = ("s2s", "s2s", "bi", "bar")  # one batch row each

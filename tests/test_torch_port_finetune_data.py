@@ -43,6 +43,7 @@ from medvill_tpu.data import seq2seq as jseq
 from medvill_tpu.data import vqa as jvqa
 from medvill_tpu.data.tokenization import BertTokenizer, build_vocab
 from tests.torch_port_support import IMG, VIS, VOCAB, finetune_config, jax_vlp
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 WORDS = [f"word{i}" for i in range(VOCAB - 5)]
 ANSWERS = 7

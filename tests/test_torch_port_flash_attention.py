@@ -17,6 +17,7 @@ from medvill_torch.ops.attention import mha_reference as t_mha
 from medvill_tpu.core.config import MaskVariant
 from medvill_tpu.data.masks import MaskGeometry
 from medvill_tpu.ops import flash_attention as jfa
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 GEOM = MaskGeometry(num_image_embeds=4, seq_len=7)
 B, HEADS, D = 2, 2, 8

@@ -24,6 +24,7 @@ from medvill_tpu.models import resnet as jresnet
 from medvill_tpu.models.decoder import filter_sample_logits as j_filter
 from tests.torch_port_support import (perturb, random_batch_stats,
                                       sub_state_dict)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 # f32 end to end on both sides; differences are summation order only
 TOL = 1e-5

@@ -30,6 +30,7 @@ from medvill_tpu.train import optim as joptim
 from medvill_tpu.train import pretrain as jpre
 from tests.torch_port_support import (perturb, random_batch_stats,
                                       sub_state_dict)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 IMG = 64
 VOCAB = 64

@@ -26,6 +26,7 @@ from medvill_tpu.core.config import (BertConfig, ImageEncoderConfig,
 from medvill_tpu.data import masks as jmasks
 from medvill_tpu.data import pretrain as jdata
 from medvill_tpu.data.tokenization import BertTokenizer, build_vocab
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 WORDS = [f"word{i}" for i in range(50)]
 
@@ -214,7 +215,8 @@ def _write_dataset(d, n=6, size=64):
 def test_pretrain_cli_end_to_end_on_cpu(tmp_path):
     """2 epochs of 3 micro-batches, accumulation 2, a 2-layer model at
     64 px: finite losses, one checkpoint per epoch in the CXRBERT layout
-    that loads strictly, metrics.jsonl rows."""
+    that loads strictly, metrics.jsonl rows; the mesh flags parse with
+    JAX's defaults."""
     data, vocab = _write_dataset(str(tmp_path))
     out = str(tmp_path / "run")
     argv = ["--train_dataset", data, "--vocab_file", vocab,
@@ -237,11 +239,16 @@ def test_pretrain_cli_end_to_end_on_cpu(tmp_path):
             model, os.path.join(out, f"model.{epoch}.bin")) == []
     assert "enc.encoder.layer.1.output.LayerNorm.weight" in \
         model.state_dict()
-    with pytest.raises(SystemExit):  # not ported: the mesh flags
-        pretrain_main.build_parser().parse_args(argv + ["--model_parallel",
-                                                        "2"])
+    # the mesh flags, with JAX's defaults; without a launcher one process
+    # cannot hold two model ranks
+    mesh_args = pretrain_main.build_parser().parse_args(
+        argv + ["--model_parallel", "2", "--zero1", "true"])
+    assert (mesh_args.model_parallel, mesh_args.zero1) == (2, True)
+    with pytest.raises(ValueError, match="must divide the world size 1"):
+        pretrain_main.main(argv + ["--model_parallel", "2"])
     args = pretrain_main.build_parser().parse_args(argv[:-4])
     assert args.device == "cuda"
+    assert (args.model_parallel, args.zero1) == (1, False)
 
 
 TRUNK_WARNING = "randomly initialized"

@@ -37,6 +37,7 @@ from medvill_tpu.utils import preempt as jpreempt
 from tests.test_torch_port_pretrain import (batches, jax_cfg, jax_variables,
                                             port_cfg, torch_batch,
                                             torch_model)
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 WORDS = [f"word{i}" for i in range(50)]
 

@@ -26,6 +26,7 @@ from medvill_torch.train import classify
 from medvill_torch.train import optim
 from medvill_torch.train import pretrain as tpre
 from medvill_torch.utils import preempt
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 WORDS = [f"word{i}" for i in range(50)]
 SPECIALS = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
@@ -59,17 +60,6 @@ def _preempted(monkeypatch, polls: int, run):
     with monkeypatch.context() as m:
         m.setattr(preempt, "PreemptionGuard", guard)
         return run()
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The tiny CLI runs here take the same time on one intra-op thread and
-    half the CPU time of the default, which the other test workers
-    share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from medvill_torch.models.cnn_bert import CNNBert
 from medvill_torch.models.cxrbert import CXRBERT
 from medvill_torch.models.seq2seq import init_weights
 from medvill_tpu.cli import retrieval_main as jax_retrieval_main
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 
@@ -107,13 +108,11 @@ def test_both_clis_train_one_epoch(syn, tmp_path):
                                    str(tout / "model.0.bin")) == []
     assert retrieval_main.build_parser().parse_args(
         argv[:-2]).device == "cuda"
-    for flag in ("--model_parallel", "--zero1"):
-        with pytest.raises(SystemExit):
-            retrieval_main.build_parser().parse_args(argv + [flag, "2"])
+    mesh_args = retrieval_main.build_parser().parse_args(
+        argv + ["--model_parallel", "2", "--zero1", "true"])
+    assert (mesh_args.model_parallel, mesh_args.zero1) == (2, True)
     jargs = vars(jax_retrieval_main.build_parser().parse_args(argv[:-2]))
     targs = vars(retrieval_main.build_parser().parse_args(argv[:-2]))
-    for k in ("model_parallel", "zero1"):
-        del jargs[k]
     assert jargs == {k: v for k, v in targs.items() if k != "device"}
 
 

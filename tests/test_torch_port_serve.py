@@ -20,6 +20,7 @@ from medvill_tpu.data.tokenization import (BertTokenizer, build_vocab,
                                            caption_from_ids)
 from medvill_tpu.models.decoder import DecodeSettings, greedy_decode
 from tests.torch_port_support import IMG, VIS, finetune_config, jax_vlp
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 T = 4
 

@@ -38,22 +38,12 @@ from medvill_tpu.train import pretrain as jpre
 from tests.test_torch_port_pretrain import (batches, port_cfg, torch_batch,
                                             torch_model)
 from tests.torch_port_support import perturb
+from tests.torch_port_support import one_thread  # noqa: F401 (autouse fixture)
 
 IMG, PATCH, N_IMG, VOCAB = 64, 32, 4, 64
 PATCH_KEYS = ("enc.img_encoder.patch_to_embedding.weight",
               "enc.img_encoder.patch_to_embedding.bias")
 WORDS = [f"word{i}" for i in range(50)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The CLI run here takes the same time on one intra-op thread and
-    half the CPU time of the default, which the other test workers
-    share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def vit_cfg(**kw) -> PretrainConfig:

@@ -4,10 +4,15 @@ token), carried into the port through ``vlp_state_dict_from_flax``."""
 from __future__ import annotations
 
 import dataclasses
+import os
+import socket
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from medvill_torch import config as tcfg
@@ -20,6 +25,18 @@ from medvill_tpu.train import finetune as ft
 IMG = 64
 VIS = 4
 VOCAB = 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one intra-op thread for a module's tests: the tiny shapes
+    here take the same time on one thread, and the default (one thread
+    per core) makes every worker of a parallel test run contend with the
+    others for the CPU. Import it into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def perturb(tree, rng: np.random.Generator, scale: float):
@@ -101,3 +118,41 @@ def sub_state_dict(sd: dict, prefix: str) -> dict:
     """Keys under ``prefix`` with it stripped, as torch tensors."""
     return {k[len(prefix):]: torch.from_numpy(np.array(v))
             for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(inputs: str, out: str, part: str):
+    """Two ranks of tests/torch_parallel_worker.py (gloo on the CPU, one
+    torch thread each) on ``part`` of its scenarios, started: a launcher's
+    variables in their environment, a free port on localhost."""
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "torch_parallel_worker.py")
+    return [subprocess.Popen(
+        [sys.executable, worker, inputs, out, part], cwd=out,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+
+
+def wait_ranks(procs, out: str) -> list:
+    """Both ranks' results (``launch_ranks``), [rank 0's, rank 1's]; a rank
+    that failed fails the caller with the end of its log."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-6000:]}"
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)]
