@@ -31,7 +31,12 @@ with ``--test_dataset``'s held-out eval (``eval_avg_*``, K1 alone on the
 card), to ``<output_path>/metrics.jsonl``.  Every ``--watch_interval``
 dispatches it appends parameter and Adam-moment norms to ``watch.jsonl``;
 ``--profile_dir`` gets a torch.profiler Chrome trace of dispatches 2-4 of
-epoch 0 (``pretrain_trace.json``).
+epoch 0 (``pretrain_trace.json``) and, beside it, the port's own record
+of them (``spans.json``: ``utils/tracing.py``'s ``snapshot()``, the host
+spans of the dispatches and of the loader's thread, the counters and, for
+dispatches replayed as CUDA graphs, the device milliseconds of each phase
+of the micro-step: image, forward, backward, update), whose phase split
+per micro-step and host milliseconds per dispatch by span it logs.
 
 Preemption (``utils/preempt.py``): SIGTERM is read after every dispatch.
 Mid-epoch it ends the step, stops the prefetch, saves the whole state
@@ -84,12 +89,13 @@ from medvill_torch.data.pretrain import (BatchLoader, CXRPretrainDataset,
 from medvill_torch.train.dispatch import MultiStep
 from medvill_torch.train.pretrain import (init_state, make_eval_step,
                                           make_train_step, to_device)
-from medvill_torch.utils import preempt
+from medvill_torch.utils import preempt, tracing
 from medvill_torch.utils.device import resolve_device
 from medvill_torch.utils.logging import create_logger, watch_norms
 from medvill_torch.utils.seed import set_seed
 
 TRACE_FILE = "pretrain_trace.json"
+SPANS_FILE = "spans.json"
 WATCH_FILE = "watch.jsonl"
 
 
@@ -162,7 +168,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight_decay", type=float, default=0.0)
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of dispatches "
-                        "2-4 of epoch 0 here")
+                        "2-4 of epoch 0 here, and the port's spans, "
+                        "counters and device phase split of them as "
+                        "spans.json")
     p.add_argument("--save_interval", type=int, default=1,
                    help="checkpoint every N epochs (the last one always; "
                         "preemption saves are unaffected)")
@@ -298,17 +306,35 @@ def _start_trace(device: torch.device):
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    tracing.refresh()
     return prof
 
 
 def _stop_trace(prof, device: torch.device, directory: str, logger) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    spans = tracing.snapshot()
     prof.stop()
+    tracing.refresh()  # the period ends with the profile
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, TRACE_FILE)
     prof.export_chrome_trace(path)
-    logger.info("wrote the profile of dispatches 2-4 to %s", path)
+    with open(os.path.join(directory, SPANS_FILE), "w") as f:
+        json.dump(spans, f)
+    logger.info("wrote the profile of dispatches 2-4 to %s and its spans "
+                "to %s", path, SPANS_FILE)
+    split = ", ".join(f"{name} {p['ms'] / p['replays']:.3f}"
+                      for name, p in spans["phases"].items())
+    logger.info("device ms per micro-step by phase (update: per update): "
+                "%s", split or "none (no graph replayed)")
+    host: Dict[str, float] = {}
+    for sp in spans["spans"]:
+        host[sp["name"]] = host.get(sp["name"], 0.0) + (
+            sp["end_ns"] - sp["start_ns"]) / 1e6
+    n = max(1, sum(sp["name"] == "dispatch" for sp in spans["spans"]))
+    logger.info("host ms per dispatch by span (loader.*: its thread): %s",
+                ", ".join(f"{k} {v / n:.3f}" for k, v in sorted(host.items()))
+                or "none")
 
 
 def _evaluate(eval_step, state, test_loader, test_ds, seed: int,

@@ -30,6 +30,7 @@ from medvill_torch.config import MaskVariant, PretrainConfig
 from medvill_torch.data import images as image_lib
 from medvill_torch.data.sampling import (random_pair_sampling, random_word,
                                          truncate_txt)
+from medvill_torch.utils import tracing
 
 
 class CXRPretrainDataset:
@@ -270,7 +271,11 @@ class PrefetchLoader:
     ``DataLoader(num_workers=...)``).  The batches come out in the wrapped
     iterable's order, an exception of the producer is raised on the
     consumer's side, and a consumer that stops early (break, an exception,
-    early stopping) releases the producer and drops the queued batches."""
+    early stopping) releases the producer and drops the queued batches.
+    Each batch gets a loader-group id (``tracing.new_item``): the producer's
+    spans (``loader.fetch`` around the wrapped iterable's ``next()``, and
+    ``place_fn``'s) carry it, and the consumer's thread takes it as its
+    current group as the batch comes out (``tracing.set_item``)."""
 
     def __init__(self, loader, depth: int = 2, place_fn=None):
         self.loader = loader
@@ -298,14 +303,19 @@ class PrefetchLoader:
 
         def worker():
             try:
-                for batch in self.loader:
+                it = iter(self.loader)
+                while True:
+                    group = tracing.new_item()
+                    tracing.set_item(group)
+                    with tracing.span("loader.fetch"):
+                        batch = next(it, end)
                     # a put racing the consumer's drain can land in the
-                    # freed slot: check before fetching and placing more
-                    if stop.is_set():
+                    # freed slot: check before placing more
+                    if batch is end or stop.is_set():
                         return
                     if self.place_fn is not None:
                         batch = self.place_fn(batch)
-                    if not put(batch):
+                    if not put((group, batch)):
                         return
             except BaseException as e:  # raised on the consumer's side
                 err.append(e)
@@ -329,7 +339,8 @@ class PrefetchLoader:
                     if err:
                         raise err[0]
                     return
-                yield item
+                tracing.set_item(item[0])
+                yield item[1]
         finally:
             # on GeneratorExit too: release the producer, then drop what it
             # queued (and what one racing put added) so no placed batch
@@ -369,7 +380,8 @@ class _CudaPrefetch:
     synchronize); the consumer's stream waits on that copy's event before
     the batch is handed out, and each tensor is ``record_stream``-ed to the
     consumer's stream so the allocator does not reuse it while the step
-    reads it."""
+    reads it.  The producer pins every key, then enqueues every copy (the
+    spans ``loader.pin`` and ``loader.h2d``)."""
 
     def __init__(self, items, device: torch.device):
         self.items, self.device = items, device
@@ -381,11 +393,14 @@ class _CudaPrefetch:
             batch, is_group = item
             with torch.cuda.device(self.device), \
                     torch.cuda.stream(copy_stream):
-                out = {k: torch.from_numpy(np.ascontiguousarray(v))
-                       .pin_memory().to(self.device, non_blocking=True)
-                       for k, v in batch.items()}
-                done = torch.cuda.Event()
-                done.record(copy_stream)
+                with tracing.span("loader.pin"):
+                    pinned = {k: torch.from_numpy(np.ascontiguousarray(v))
+                              .pin_memory() for k, v in batch.items()}
+                with tracing.span("loader.h2d"):
+                    out = {k: t.to(self.device, non_blocking=True)
+                           for k, t in pinned.items()}
+                    done = torch.cuda.Event()
+                    done.record(copy_stream)
             return out, is_group, done
 
         it = iter(PrefetchLoader(self.items, place_fn=place))
@@ -416,9 +431,13 @@ def dispatch_loader(loader, device, keys: Optional[Sequence[str]] = None,
              else ((b, False) for b in selected))
     if device.type == "cuda":
         return _CudaPrefetch(items, device)
-    return PrefetchLoader(items, place_fn=lambda item: (
-        {n: torch.as_tensor(v).to(device) for n, v in item[0].items()},
-        item[1]))
+
+    def place(item):
+        with tracing.span("loader.h2d"):
+            return ({n: torch.as_tensor(v).to(device)
+                     for n, v in item[0].items()}, item[1])
+
+    return PrefetchLoader(items, place_fn=place)
 
 
 def synthetic_records(n: int, rng: Optional[random.Random] = None,

@@ -42,6 +42,7 @@ from medvill_torch.models.bert import (BertEmbeddings, BertEncoder,
 from medvill_torch.models.resnet import (ResNet50Trunk, device_normalize,
                                          fibers)
 from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.utils import tracing
 
 PORTED_ENCODERS = ("random-pixel", "full-fiber", "ViT")
 
@@ -108,14 +109,17 @@ class JointEncoder(nn.Module):
                      train: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image [B, H, W, 3] -> (features [B, N, 2048], positions
-        [B, N]).  ViT: every patch, ``pixel_indices`` ignored."""
+        [B, N]).  ViT: every patch, ``pixel_indices`` ignored.  The
+        encoder's end is the phase mark ``image`` (``utils/tracing.py``)."""
         if self.vit:
             feats = self.img_encoder(image)
+            tracing.mark("image")
             B, M, _ = feats.shape
             return feats, torch.arange(M, device=feats.device).expand(B, -1)
         frozen = self.image.freeze_prefix_stages
         with torch.no_grad() if frozen else contextlib.nullcontext():
             feats = fibers(self.img_encoder(image, train=train))
+        tracing.mark("image")
         B, M, _ = feats.shape
         pos = torch.arange(M, device=feats.device)
         if pixel_indices is not None:

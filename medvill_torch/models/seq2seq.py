@@ -43,6 +43,7 @@ from medvill_torch.models.bert import (BertEmbeddings, BertEncoder,
 from medvill_torch.models.heads import MLMHead, VQAHead
 from medvill_torch.models.resnet import ResNet50Trunk, fibers
 from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.utils import tracing
 
 
 class VLPEncoder(nn.Module):
@@ -69,6 +70,7 @@ class VLPEncoder(nn.Module):
         frozen = self.image.freeze_prefix_stages
         with torch.no_grad() if frozen else contextlib.nullcontext():
             feats = fibers(self.img_encoder(image, train=train))
+        tracing.mark("image")
         B, M, _ = feats.shape
         pos = torch.arange(M, device=feats.device).expand(B, M)
         # the reference assumes fiber count == len_vis_input (256 at 512 px)

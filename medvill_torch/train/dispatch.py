@@ -49,6 +49,20 @@ of a k-batch group.
   run at k > 1 equals the run that never stopped at the same k.
 - On the CPU a ``MultiStep`` runs the k micro-steps eagerly, one after
   another.
+- Tracing (``utils/tracing.py``, live while a profiler runs): each call
+  refreshes the switch and opens the span ``dispatch`` (carrying the loader
+  group it takes), with ``dispatch.draw``, ``dispatch.eager`` (a
+  micro-step run eagerly), ``dispatch.capture``, ``dispatch.stage`` (the
+  pixel draws' copy, the copies into the static buffers, the reseed and
+  the optimizer's host work), ``dispatch.launch`` (``tracing.replay``,
+  which gives the replay's phase marks events of their own, and the
+  replay) and ``dispatch.collect`` inside; it counts ``dispatch.replays``
+  and ``dispatch.eager_steps``.
+  ``MicroStep.body`` marks the phases ``start``, ``forward`` (after the
+  loss), ``backward`` and ``end`` (after the update and the metrics' sum);
+  the models mark ``image`` after their image encoder.  A graph keeps the
+  marks it captured (``tracing.bind``: it is captured with ``keep_graph``
+  and instantiated at once, as it would be otherwise).
 """
 from __future__ import annotations
 
@@ -60,6 +74,7 @@ from medvill_torch import parallel
 from medvill_torch.ops import flash_attention as fa
 from medvill_torch.ops import fused_ln
 from medvill_torch.ops.dropout import DropoutRNG
+from medvill_torch.utils import tracing
 
 Metrics = Dict[str, torch.Tensor]
 # (model, batch, rng, pixel_indices) -> (loss, metrics)
@@ -109,12 +124,17 @@ class MicroStep:
         batch's, and the update and the metrics are the global batch's:
         the gradients are summed over the data group when the update
         applies (``Accumulate.apply_device``), the metrics here."""
+        tracing.mark("start")
         loss, metrics = self.loss_fn(state.model, batch, rng, pix)
+        tracing.mark("forward")
         loss.backward()
+        tracing.mark("backward")
         if apply:
             state.tx.apply_device()
-        return parallel.sum_metrics({k: v.detach() for k, v in
-                                     metrics.items()})
+        out = parallel.sum_metrics({k: v.detach() for k, v in
+                                    metrics.items()})
+        tracing.mark("end")
+        return out
 
     def run(self, state, batch, pix: Optional[torch.Tensor],
             seed: int) -> Metrics:
@@ -137,9 +157,9 @@ class MicroStep:
 
 
 class _Graph:
-    def __init__(self, graph, batch, pix, out, launches):
+    def __init__(self, graph, batch, pix, out, launches, marks):
         self.graph, self.batch, self.pix = graph, batch, pix
-        self.out, self.launches = out, launches
+        self.out, self.launches, self.marks = out, launches, marks
 
 
 class MultiStep:
@@ -156,11 +176,23 @@ class MultiStep:
         self._pool = None
 
     def __call__(self, state, group, generator: torch.Generator) -> Metrics:
+        tracing.refresh()
+        with tracing.span("dispatch"):
+            return self._dispatch(state, group, generator)
+
+    def _dispatch(self, state, group, generator: torch.Generator
+                  ) -> Metrics:
         device = _device_of(group)
-        draws = [self.micro.draw(generator) for _ in range(self.k)]
+        with tracing.span("dispatch.draw"):
+            draws = [self.micro.draw(generator) for _ in range(self.k)]
         if device.type == "cpu":
-            out = [self.micro.run(state, {n: t[i] for n, t in group.items()},
-                                  *draws[i]) for i in range(self.k)]
+            out = []
+            for i in range(self.k):
+                with tracing.span("dispatch.eager"):
+                    out.append(self.micro.run(
+                        state, {n: t[i] for n, t in group.items()},
+                        *draws[i]))
+            tracing.count("dispatch.eager_steps", self.k)
             return {n: torch.stack([m[n] for m in out]) for n in out[0]}
         if device.type != "cuda":
             raise ValueError(f"steps per dispatch: no graphs on {device}")
@@ -187,58 +219,72 @@ class MultiStep:
             # the pixel draws are copied on the stream that reads them
             pix_all = None
             if draws[0][0] is not None:
-                pix_all = torch.stack([p for p, _ in draws]).pin_memory().to(
-                    device, non_blocking=True)
+                with tracing.span("dispatch.stage"):
+                    pix_all = torch.stack([p for p, _ in draws]) \
+                        .pin_memory().to(device, non_blocking=True)
             for i, (_, seed) in enumerate(draws):
                 batch = {n: t[i] for n, t in group.items()}
                 pix = None if pix_all is None else pix_all[i]
                 apply = tx.applies_next()
                 kind = "apply" if apply else "accumulate"
                 if kind not in self._warm:
-                    out.append(self.micro.run(state, batch, pix, seed))
+                    with tracing.span("dispatch.eager"):
+                        out.append(self.micro.run(state, batch, pix, seed))
+                    tracing.count("dispatch.eager_steps")
                     self._warm.add(kind)
                     continue
                 g = self._graphs.get(kind)
                 if g is None:
-                    g = self._graphs[kind] = self._capture(
-                        state, batch, pix, seed, apply, rng)
-                for n, t in g.batch.items():
-                    t.copy_(batch[n])
-                if g.pix is not None:
-                    g.pix.copy_(pix)
-                rng.reseed(seed)
-                if apply:
-                    tx.prepare()
-                g.graph.replay()
-                tx.finish(apply)
-                state.step += 1
-                for fn, n in zip(COUNTED, g.launches):
-                    fn.launches += n
-                out.append({n: t.clone() for n, t in g.out.items()})
-        cur.wait_stream(side)
-        for m in out:
-            for t in m.values():
-                t.record_stream(cur)
-        return {n: torch.stack([m[n] for m in out]) for n in out[0]}
+                    with tracing.span("dispatch.capture"):
+                        g = self._graphs[kind] = self._capture(
+                            state, batch, pix, seed, apply, rng)
+                with tracing.span("dispatch.stage"):
+                    for n, t in g.batch.items():
+                        t.copy_(batch[n])
+                    if g.pix is not None:
+                        g.pix.copy_(pix)
+                    rng.reseed(seed)
+                    if apply:
+                        tx.prepare()
+                with tracing.span("dispatch.launch"):
+                    tracing.replay(g.marks, apply)
+                    g.graph.replay()
+                tracing.count("dispatch.replays")
+                with tracing.span("dispatch.collect"):
+                    tx.finish(apply)
+                    state.step += 1
+                    for fn, n in zip(COUNTED, g.launches):
+                        fn.launches += n
+                    out.append({n: t.clone() for n, t in g.out.items()})
+        with tracing.span("dispatch.collect"):
+            cur.wait_stream(side)
+            for m in out:
+                for t in m.values():
+                    t.record_stream(cur)
+            return {n: torch.stack([m[n] for m in out]) for n in out[0]}
 
     def _capture(self, state, batch, pix, seed: int, apply: bool,
                  rng: DropoutRNG) -> _Graph:
         static_batch = {n: t.clone() for n, t in batch.items()}
         static_pix = None if pix is None else pix.clone()
         rng.reseed(seed)
-        graph = torch.cuda.CUDAGraph()
+        # kept, so that the phase marks' nodes can be found (tracing.bind)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         graph.register_generator_state(rng.generator)
         before = [fn.launches for fn in COUNTED]
         # thread_local: the loader's thread goes on copying the next
         # batches on its own stream while this thread captures
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
-                              capture_error_mode="thread_local"):
+        with tracing.capture() as marks, \
+                torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
+                                 capture_error_mode="thread_local"):
             out = self.micro.body(state, static_batch, rng, static_pix,
                                   apply)
+        graph.instantiate()
+        tracing.bind(marks, graph)
         launches = []
         for fn, b in zip(COUNTED, before):
             launches.append(fn.launches - b)
             fn.launches = b  # the capture launched nothing
         self._pool = graph.pool()
-        return _Graph(graph, static_batch, static_pix, out, launches)
+        return _Graph(graph, static_batch, static_pix, out, launches, marks)
 

@@ -1067,3 +1067,58 @@ def test_cpu_written_optim_file_restores_on_card(cuda_device, tmp_path):
             torch.testing.assert_close(
                 card.model.state_dict()[name].cpu(), t, rtol=0,
                 atol=1e-4 * max(t.abs().max().item(), 1e-6), msg=name)
+
+
+def test_captured_phases_add_up_and_tracing_changes_nothing(cuda_device,
+                                                           monkeypatch):
+    """Phase marks (medvill_torch/utils/tracing.py): a 2-layer pretrain
+    model (fused_ln, f32, accumulation 2), six dispatches of k = 2 (the
+    first eager, the second captures both graphs and replays each once,
+    then one replay of each per dispatch), the last four under the
+    profiler with a ring of 3 event sets (so each graph's sets are reused):
+    the marks time image, forward, backward, update and tail, each
+    positive, one of each per replay, adding up to the replays' time
+    within 5%; losses and K1-K4 launch counts equal an untraced twin's bit
+    for bit."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from medvill_torch.train import dispatch
+    from medvill_torch.train import pretrain as tpre
+    from medvill_torch.utils import tracing
+
+    monkeypatch.setattr(tracing, "RING", 3)
+    cfg = _tiny_pretrain()
+    batches = [_pretrain_batch(cuda_device, cfg, i) for i in range(12)]
+    groups = [{k: torch.stack([b[k] for b in batches[i:i + 2]])
+               for k in batches[0]} for i in range(0, 12, 2)]
+    runs = {}
+    for traced in (False, True):
+        state = tpre.init_state(cfg, seed=0, device=cuda_device)
+        multi = dispatch.MultiStep(tpre.make_train_step(cfg), 2)
+        gen = torch.Generator().manual_seed(1)
+        before = [f.launches for f in dispatch.COUNTED]
+        out = [multi(state, g, gen)["loss"] for g in groups[:2]]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) if traced \
+                else contextlib.nullcontext():
+            out += [multi(state, g, gen)["loss"] for g in groups[2:]]
+            torch.cuda.synchronize()
+            snap = tracing.snapshot()
+        runs[traced] = (torch.cat(out).cpu(), [
+            f.launches - b for f, b in zip(dispatch.COUNTED, before)])
+    tracing.refresh()
+    assert torch.equal(runs[False][0], runs[True][0])
+    assert runs[False][1] == runs[True][1]
+    phases = snap["phases"]
+    assert set(phases) == {"image", "forward", "backward", "update", "tail",
+                           "replay"}
+    assert phases["replay"]["replays"] == 8
+    assert phases["update"]["replays"] == phases["tail"]["replays"] == 4
+    for name, p in phases.items():
+        assert p["ms"] > 0, name
+    parts = sum(p["ms"] for n, p in phases.items() if n != "replay")
+    assert parts == pytest.approx(phases["replay"]["ms"], rel=0.05)
+    assert snap["counters"] == {"dispatch.replays": 8}

@@ -35,7 +35,8 @@ def test_modules_import_neither_jax_nor_medvill_tpu():
                  "eval.metrics", "models.mmbt", "train.classify",
                  "utils.seed", "torch_init", "utils.preempt",
                  "data.retrieval", "models.cnn_bert", "train.retrieve",
-                 "cli.retrieval_main", "data.native_tokenizer", "parallel"):
+                 "cli.retrieval_main", "data.native_tokenizer", "parallel",
+                 "utils.tracing"):
         assert f"medvill_torch.{name}" in names
     code = (
         "import importlib, sys\n"

@@ -3,7 +3,7 @@ optimizer state's round trip, the resume scan, and the pretrain, finetune
 and classification CLIs preempted by a counting guard and relaunched (the
 pretrain and finetune runs bit for bit equal to an uninterrupted twin),
 the pretrain CLI's torch-file initializers, its eval, watch rows and
-profile trace.  The JAX package has the same checks in
+profile trace and its spans.  The JAX package has the same checks in
 tests/test_preempt.py; what is held against JAX directly is in
 test_torch_port_resume.py."""
 import json
@@ -172,6 +172,36 @@ def test_pretrain_twin_writes_its_eval_watch_rows_and_trace(pretrain_twins,
         assert json.load(f)["traceEvents"]
     assert ckpt.latest_epoch(out) == 1
     _assert_same_run(pretrain_twins[2], out, 1)
+
+
+def test_pretrain_profile_writes_its_spans(data, tmp_path):
+    """--profile_dir at --steps_per_dispatch 2 over batches of 1 (3 groups
+    in the one epoch; the profile covers the third): beside the Chrome
+    trace, spans.json holds the port's record of that dispatch (its draw
+    and two eager micro-steps inside it, the group it took, the counter;
+    no graph on the CPU, so no phase), and the log gives the phase split
+    and the host time by span."""
+    out, traced = str(tmp_path / "run"), tmp_path / "trace"
+    pretrain_main.main(_pretrain_argv(
+        data, out, 2, "--profile_dir", str(traced), "--batch_size", "1",
+        "--epochs", "1"))
+    assert (traced / pretrain_main.TRACE_FILE).exists()
+    with open(traced / pretrain_main.SPANS_FILE) as f:
+        spans = json.load(f)
+    assert set(spans) == {"period_ns", "spans", "phases", "counters",
+                          "dropped"}
+    assert spans["counters"] == {"dispatch.eager_steps": 2}
+    assert spans["phases"] == {} and spans["dropped"] == 0
+    top, = [s for s in spans["spans"] if s["name"] == "dispatch"]
+    assert top["item"] is not None and top["parent"] is None
+    assert [s["name"] for s in spans["spans"]
+            if s["parent"] == top["id"]] == ["dispatch.draw",
+                                             "dispatch.eager",
+                                             "dispatch.eager"]
+    with open(os.path.join(out, "train.log")) as f:
+        log = f.read()
+    assert "by phase" in log and "host ms per dispatch by span" in log
+    assert "dispatch.eager" in log
 
 
 @pytest.mark.parametrize("k", [1, 2])
