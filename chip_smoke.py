@@ -6,7 +6,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 1. build: every kernel under medvill_torch/ops/csrc/ with nvcc (one process
    per source, all at once), with ptxas' registers and spills per kernel
-   (none in the bf16 attention kernels and in any K4 instantiation).
+   (none in the bf16 attention kernels, in any K4 instantiation and in the
+   two BertAdam kernels).
 2. kernel: the fused dropout+residual+LayerNorm kernel against its plain
    PyTorch version at the serve path's shapes (prefill R = 8*258, decode
    window R = 8*2, H = 768) in f32 (max abs err <= 1e-5) and bf16 (<= one
@@ -74,6 +75,14 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    0.1: 1 and 15697 rows at H 768 bf16, 15697 at H 1024 bf16, 1 and 15697
    at H 32 f32.  Then K3/K4 at the finetune step's call (R = 4 * 512, bf16,
    rate 0.1, eps 1e-5), checked and timed the same way.
+6a. bert-adam: BertAdam's two launches (ops/bert_adam.py) on the report-
+   generation finetune's 111.7 M trained elements (the finetune CLI's
+   defaults): one update against the foreach chain's on the same card and
+   tensors, with the clip engaged and idle, parameters and moments within
+   1e-6 and bit-equal while the clip is idle; device times from CUDA
+   graphs of the norm launch, the update launch and a whole update,
+   beside the bound (36 B per element at 3.35 TB/s) and the chain with
+   its clearing pass (the yardstick the port no longer calls).
 7. train: python -m medvill_torch.cli.pretrain_main's entry point at the
    full configuration (BERT-base, ResNet-50 at 512 px, 180 random-pixel
    embeds, seq_len 253 so L = 436, BAR, batch 36, accumulation 4, AdamW lr
@@ -100,10 +109,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    train phase's pretrain model.0.bin, one epoch over its first 32 records
    (8 micro-steps): token-type rows 2, 3, 4 recovered from pretrain row 0
    and row 5 from row 1; finite losses; exactly 12 K1, 12 K2, 24 K3 and 24
-   K4 launches per micro-step; model.0.bin written in the reference VLP
-   layout loads strictly, and a greedy decode of 2 images x 16 tokens from
-   it gives finite log-probabilities.  Reports/s, ms per micro-step, peak
-   memory.
+   K4 launches and one BertAdam update per micro-step; model.0.bin written
+   in the reference VLP layout loads strictly, and a greedy decode of 2
+   images x 16 tokens from it gives finite log-probabilities.  Reports/s,
+   ms per micro-step, peak memory.
 11. finetune-steps: medvill_torch.train.finetune on one repeated batch, a
    generator of the same seed per step, lr 1e-4, t_total 4, 5 micro-steps:
    the second loss equals the first within 1e-6 relative (the first update
@@ -318,11 +327,11 @@ from medvill_torch.models import bert as bert_lib
 from medvill_torch.models import decoder
 from medvill_torch.models.mmbt import full_spec
 from medvill_torch.models.seq2seq import VLPForPreTraining, init_weights
-from medvill_torch.ops import build
+from medvill_torch.ops import bert_adam, build
 from medvill_torch.ops import flash_attention as fa
 from medvill_torch.ops import fused_ln
 from medvill_torch.ops.dropout import DropoutRNG
-from medvill_torch.train import classify
+from medvill_torch.train import classify, optim
 from medvill_torch.train import finetune as finetune_lib
 from medvill_torch.train import pretrain as pretrain_lib
 from medvill_torch.train import retrieve as retrieve_lib
@@ -496,7 +505,11 @@ def phase_build() -> dict:
           if n.startswith("fused_ln_bwd_kernel")}
     check(K4_MAIN in k4, f"ptxas report lacks {K4_MAIN}: "
                          f"{sorted(ptxas['fused_ln'])}")
-    for n, e in {**tc, **k4}.items():
+    adam = ptxas["bert_adam"]
+    check(set(adam) == {"bert_adam_norm_kernel[f32]",
+                        "bert_adam_update_kernel[f32]"},
+          f"ptxas report of bert_adam: {sorted(adam)}")
+    for n, e in {**tc, **k4, **adam}.items():
         check(e["spill_stores"] == e["spill_loads"] == 0, f"{n} spills: {e}")
     emit({"phase": "build", "seconds": seconds,
           "kernels": {n: r["seconds"] for n, r in report.items()},
@@ -1383,6 +1396,122 @@ def _ln_times(x, res, gamma, beta, dy, kw: dict) -> dict:
             "k3_bound_ms": k3_bound, "k3_bound_by": k3_by}
 
 
+class _ChainAdam(optim.BertAdam):
+    """BertAdam through its foreach chain on the card: the plain version,
+    the yardstick the kernel replaced."""
+
+    def _kernel(self, live, norms):
+        self._chain(live, norms)
+        return False
+
+
+def _adam_state(device, chain: bool, scale: float):
+    """The report-generation finetune's trained tensors (the finetune CLI's
+    defaults: BERT-base VLP over the frozen trunk, BertAdam lr 3e-5, decay
+    0.01, clip 1.0) at SEED's weights, with gradients of ``scale`` * a
+    normal draw of their own; the optimizer's lr already written."""
+    args = finetune_main.build_parser().parse_args(
+        ["--src_file", "unused", "--vocab_file", "unused"])
+    cfg = finetune_main.config_from_args(args)
+    model = finetune_lib.build_model(cfg)
+    init_weights(model, SEED, cfg.bert.initializer_range)
+    model.to(device)
+    opt = (_ChainAdam if chain else optim.BertAdam)(
+        optim.decay_groups(model, cfg.weight_decay), cfg.lr, t_total=100,
+        warmup=cfg.warmup, schedule=cfg.sche_mode,
+        weight_decay=cfg.weight_decay)
+    opt.opt_step = 50
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    for p in optim.trainable(model):
+        p.grad = torch.randn(p.shape, device=device, generator=gen) * scale
+    opt.prepare()
+    return model, opt
+
+
+def phase_bert_adam(device) -> dict:
+    """BertAdam's two launches (ops/bert_adam.py) on the finetune's trained
+    tensors: one update against the foreach chain's on the same card and
+    tensors, with the clip engaged (gradients 3 x normal) and idle (1e-5 x
+    normal): parameters and moments within 1e-6, bit-equal while the clip
+    is idle, the mismatching elements counted; then device times from CUDA
+    graphs of the norm launch, the update launch and both (a whole update,
+    clearing the gradients), beside the bound (36 B per element at 3.35
+    TB/s) and the chain's update with its clearing pass.  Returns the
+    kernels-line entry."""
+    errs = {}
+    for name, scale in (("clipped", 3.0), ("unclipped", 1e-5)):
+        out = {}
+        for chain in (False, True):
+            model, opt = _adam_state(device, chain, scale)
+            opt.clear_grads = True
+            before = bert_adam.bert_adam.launches
+            cleared = opt.device_step()
+            torch.cuda.synchronize()
+            check(cleared != chain, f"bert-adam: cleared {cleared}")
+            check(bert_adam.bert_adam.launches == before + (not chain),
+                  "bert-adam: one launch count per kernel update")
+            out[chain] = [(p.detach().clone(), opt.state[p]["m"].clone(),
+                           opt.state[p]["v"].clone())
+                          for p in optim.trainable(model)]
+            if not chain:
+                check(all(not p.grad.any() for p in optim.trainable(model)
+                          if p.grad is not None), "bert-adam: grads left")
+            del model, opt
+        rec = {"max_abs_err": 0.0, "mismatched": 0, "elements": 0}
+        for got, want in zip(out[False], out[True]):
+            for a, b in zip(got, want):
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         (a - b).abs().max().item())
+                rec["mismatched"] += int((a != b).sum().item())
+                rec["elements"] += a.numel()
+        check(rec["max_abs_err"] <= 1e-6, f"bert-adam {name}: {rec}")
+        if name == "unclipped":
+            check(rec["mismatched"] == 0, f"bert-adam {name}: {rec}")
+        errs[name] = rec
+        del out
+    model, opt = _adam_state(device, False, 3.0)
+    opt.clear_grads = True
+    opt.device_step()  # builds the table
+    table = opt._table
+    norm, update = bert_adam._kernels()
+    n = sum(p.numel() for p in optim.trainable(model))
+    head = (table.rows.data_ptr(), table.n_tensors, table.n_chunks,
+            bert_adam.CHUNK, table.partials.data_ptr())
+
+    def norm_launch():
+        norm(*head, torch.cuda.current_stream().cuda_stream)
+
+    def update_launch():
+        update(*head, None, 1, opt.b1, opt.b2, 1.0 - opt.b1, 1.0 - opt.b2,
+               opt.eps, opt.max_grad_norm, 1,
+               torch.cuda.current_stream().cuda_stream)
+
+    times = {"norm_ms": device_ms(norm_launch, iters=20),
+             "update_ms": device_ms(update_launch, iters=20),
+             "ms": device_ms(opt.device_step, iters=20)}
+    del model, opt, table
+    model, chain = _adam_state(device, True, 3.0)
+    grads = [p.grad for p in optim.trainable(model)]
+
+    def chain_update():
+        chain.device_step()
+        torch._foreach_zero_(grads)
+
+    times["chain_ms"] = device_ms(chain_update, iters=10)
+    del model, chain, grads
+    torch.cuda.empty_cache()
+    bound_ms = 36 * n / HBM_BYTES_PER_S * 1e3
+    rec = {"phase": "bert-adam", "elements": n, "bound_ms": bound_ms,
+           **times, "roofline": bound_ms / times["ms"],
+           "norm_roofline": 4 * n / HBM_BYTES_PER_S * 1e3 / times["norm_ms"],
+           "update_roofline": 32 * n / HBM_BYTES_PER_S * 1e3
+           / times["update_ms"], "vs_chain": times["chain_ms"] / times["ms"],
+           "errors": errs}
+    emit(rec)
+    return {"ms": times["ms"], "bound_ms": bound_ms,
+            "chain_ms": times["chain_ms"], "errors": errs}
+
+
 def write_train_data(d: str, vocab: str) -> str:
     """TRAIN_RECORDS JSONL records over TRAIN_IMAGES shared 512-px PNGs,
     each report 240 words of the synthetic vocabulary (240 of the 253 text
@@ -1790,10 +1919,12 @@ def phase_finetune(argv: list, device) -> dict:
     del model
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    updates = bert_adam.bert_adam.launches
     t0 = time.perf_counter()
     result = finetune_main.main(argv)
     wall = time.perf_counter() - t0
     counts = read_counts()
+    updates = bert_adam.bert_adam.launches - updates
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     row = result["epochs"][0]
     check(row["micro_steps"] == FT_MICRO_STEPS, f"micro steps {row}")
@@ -1801,6 +1932,9 @@ def phase_finetune(argv: list, device) -> dict:
           f"non-finite losses {row}")
     want = {k: v * FT_MICRO_STEPS for k, v in KERNEL_COUNTS.items()}
     check(counts == want, f"finetune launches {counts} != {want}")
+    # accumulation 1: every micro-step updates through the kernel
+    check(updates == FT_MICRO_STEPS, f"finetune BertAdam updates {updates}")
+    counts["BertAdam"] = updates
     ckpt = os.path.join(args.output_dir, "model.0.bin")
     model = VLPForPreTraining(cfg.bert, cfg.image,
                               len_vis_input=cfg.len_vis_input)
@@ -4160,6 +4294,7 @@ def main() -> int:
     k3_shapes = phase_kernel(device)
     entries = phase_kernel_attn(device)
     entries.update(phase_kernel_ln_bwd(device, ptxas))
+    entries["BertAdam"] = phase_bert_adam(device)
     with tempfile.TemporaryDirectory(prefix="medvill_smoke_") as d:
         argv = _write_fixture(d)
         reset_counts()
@@ -4212,7 +4347,8 @@ def main() -> int:
                "K3": ("fused_dropout_add_ln", "fused_ln.cu",
                       "medvill_tpu/ops/fused_ln.py:57"),
                "K4": ("fused_dropout_add_ln_bwd", "fused_ln.cu",
-                      "medvill_tpu/ops/fused_ln.py:72")}
+                      "medvill_tpu/ops/fused_ln.py:72"),
+               "BertAdam": ("bert_adam", "bert_adam.cu", None)}
     kernels = []
     for kid, (name, src, replaces) in sources.items():
         by_path = {p: c[kid] for p, c in paths.items() if kid in c}
@@ -4224,7 +4360,8 @@ def main() -> int:
                         "launches_by_path": by_path, **entries[kid]})
     kernels[0]["eval_shape"] = eval_k1
     for entry in kernels:
-        entry["vit_shape"] = vit_entries[entry["id"]]
+        if entry["id"] in vit_entries:
+            entry["vit_shape"] = vit_entries[entry["id"]]
         if entry["id"] in tp_entries:
             entry["tp_shape"] = tp_entries[entry["id"]]
     for key, shape in (("serve_shape", "prefill"),

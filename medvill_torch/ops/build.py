@@ -121,9 +121,11 @@ def compile_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built on first use."""
+    """The loaded shared library of kernel ``name``.  Its first use builds
+    every kernel of ``csrc/`` not built yet, all at once (``compile_all``),
+    so a program that loads several waits for one ``nvcc`` round."""
     with _lock:
         if name not in _libs:
-            compile_all([name])
+            compile_all()
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]

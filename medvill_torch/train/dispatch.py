@@ -71,6 +71,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from medvill_torch import parallel
+from medvill_torch.ops import bert_adam
 from medvill_torch.ops import flash_attention as fa
 from medvill_torch.ops import fused_ln
 from medvill_torch.ops.dropout import DropoutRNG
@@ -82,7 +83,7 @@ LossFn = Callable[..., Tuple[torch.Tensor, Metrics]]
 
 # the kernel wrappers whose launches a graph replays
 COUNTED = (fa.attn_fwd, fa.attn_bwd, fused_ln.fused_ln_fwd,
-           fused_ln.fused_ln_bwd)
+           fused_ln.fused_ln_bwd, bert_adam.bert_adam)
 
 
 def _device_of(batch: Dict[str, torch.Tensor]) -> torch.device:

@@ -20,9 +20,10 @@ train/finetune.py:199-208).
   per application.  An application is three parts, so that a CUDA graph
   can capture the device part alone (train/dispatch.py): ``prepare`` (the
   host writes what the update reads: BertAdam's lr), ``apply_device``
-  (divide, update, clear the gradients) and ``finish`` (the host's
-  counters).  With ``keep_grads`` the gradients are zeroed in place, not
-  freed, so the ``.grad`` buffers keep the addresses a graph captured.
+  (divide, update, clear the gradients; BertAdam's kernel clears them in
+  its own pass) and ``finish`` (the host's counters).  With
+  ``keep_grads`` the gradients are zeroed in place, not freed, so the
+  ``.grad`` buffers keep the addresses a graph captured.
 - ``BertAdam``: the vendored BertAdam as ``make_finetune_tx`` builds it,
   applied to the accumulated mean gradient: each tensor's gradient clipped
   by ``min(1, max_grad_norm / (||g|| + 1e-6))``, Adam without bias
@@ -39,7 +40,11 @@ train/finetune.py:199-208).
   ``ReduceLROnPlateau`` scale, train/classify.py).  The lr reaches the
   update as a device scalar, ``-lr * schedule * plateau``, written by
   ``prepare`` before each update (a captured update reads the value of
-  its replay, not the one of its capture).
+  its replay, not the one of its capture).  CUDA parameters take the
+  kernel (``ops/bert_adam.py``: one pass for the norms, one for the
+  update, which also clears the gradients where ``Accumulate`` would);
+  CPU parameters take the plain version, the foreach chain, which the
+  kernel follows in f32 and in its order of operations.
 - ``SCHEDULES``: ``warmup_linear`` (decays as ``max((x - 1) / (warmup -
   1), 0)``), ``warmup_constant``, ``warmup_cosine``
   (reference: sc/pytorch_pretrained_bert/optimization.py:32-44).
@@ -66,6 +71,7 @@ import torch
 from torch import nn
 
 from medvill_torch import parallel
+from medvill_torch.ops import bert_adam
 
 
 class AdamW(torch.optim.AdamW):
@@ -76,8 +82,11 @@ class AdamW(torch.optim.AdamW):
     def prepare(self) -> None:
         pass
 
-    def device_step(self) -> None:
+    clear_grads = False  # Accumulate's request, which AdamW leaves to it
+
+    def device_step(self) -> bool:
         self.step()
+        return False
 
     def finish(self) -> None:
         pass
@@ -162,6 +171,10 @@ class BertAdam(torch.optim.Optimizer):
         self.opt_step = 0
         self.plateau = 1.0
         self._lr = None  # per group, -lr * lr_scale() on the device
+        self._table = bert_adam.Table()  # the kernel's launch table
+        # set by Accumulate: whether device_step may zero every .grad of the
+        # groups in place as it updates (the kernel does so in its pass)
+        self.clear_grads = False
 
     def lr_scale(self) -> float:
         """``schedule(opt_step / t_total, warmup) * plateau`` of the next
@@ -195,40 +208,70 @@ class BertAdam(torch.optim.Optimizer):
         self.finish()
 
     @torch.no_grad()
-    def device_step(self) -> None:
+    def device_step(self) -> bool:
         """The update, reading only device state (capturable once the
         moments exist).  Named as torch names an optimizer's step, so a
-        profile shows its span (tools/torch_pretrain_profile.py)."""
+        profile shows its span (tools/torch_pretrain_profile.py).  Returns
+        whether it zeroed the gradients (``clear_grads``, on the kernel
+        path)."""
         with torch.profiler.record_function("Optimizer.step#BertAdam.step"):
-            self._update()
+            return self._update()
 
-    def _update(self) -> None:
+    def _update(self) -> bool:
         live = [[p for p in group["params"] if p.requires_grad]
                 for group in self.param_groups]
         params = [p for ps in live for p in ps]
+        # where the tensors lie over several ranks (parallel.place), each
+        # piece is clipped by its whole tensor's norm; every rank takes part
+        # in that sum, whatever it holds
+        whole = (self.param_groups[0].get("whole")
+                 if self.max_grad_norm > 0 else None)
+        norms = (whole.norms(params, [p.grad if p.grad is not None else
+                                      torch.zeros_like(p) for p in params])
+                 if whole is not None else None)
+        if not params:
+            return False
+        for p in params:
+            if not self.state[p]:
+                self.state[p]["m"] = torch.zeros_like(p)
+                self.state[p]["v"] = torch.zeros_like(p)
+        if params[0].is_cuda:
+            return self._kernel(live, norms)
+        self._chain(live, norms)
+        return False
+
+    def _kernel(self, live, norms) -> bool:
+        """The update as ``ops.bert_adam``'s two launches."""
+        bert_adam.bert_adam(
+            self._table,
+            [(p, p.grad, self.state[p]["m"], self.state[p]["v"], lr,
+              group["weight_decay"])
+             for group, lr, ps in zip(self.param_groups, self._lr, live)
+             for p in ps],
+            b1=self.b1, b2=self.b2, eps=self.eps,
+            max_grad_norm=self.max_grad_norm, norms=norms,
+            clear=self.clear_grads)
+        if self.clear_grads:
+            frozen = [p.grad for g in self.param_groups for p in g["params"]
+                      if not p.requires_grad and p.grad is not None]
+            if frozen:
+                torch._foreach_zero_(frozen)
+        return self.clear_grads
+
+    def _chain(self, live, norms) -> None:
+        """The plain version: the update as foreach passes."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+                 for ps in live for p in ps]
         if self.max_grad_norm > 0:
-            # where the tensors lie over several ranks (parallel.place),
-            # each piece is clipped by its whole tensor's norm; every rank
-            # takes part in that sum, whatever it holds
-            whole = self.param_groups[0].get("whole")
-            norms = (whole.norms(params, grads) if whole is not None else
-                     torch.stack(torch._foreach_norm(grads)) if grads
-                     else None)
-            if norms is not None and grads:
-                clip = torch.clamp(self.max_grad_norm / (norms + 1e-6),
-                                   max=1.0)
-                grads = torch._foreach_mul(grads, list(clip.unbind(0)))
+            if norms is None:
+                norms = torch.stack(torch._foreach_norm(grads))
+            clip = torch.clamp(self.max_grad_norm / (norms + 1e-6), max=1.0)
+            grads = torch._foreach_mul(grads, list(clip.unbind(0)))
         i = 0
         for group, lr, ps in zip(self.param_groups, self._lr, live):
             if not ps:
                 continue
             gs, i = grads[i:i + len(ps)], i + len(ps)
-            for p in ps:
-                if not self.state[p]:
-                    self.state[p]["m"] = torch.zeros_like(p)
-                    self.state[p]["v"] = torch.zeros_like(p)
             m = [self.state[p]["m"] for p in ps]
             v = [self.state[p]["v"] for p in ps]
             torch._foreach_mul_(m, self.b1)
@@ -276,13 +319,15 @@ class Accumulate:
             grads = [self.zero1.span_grad]
         if self.every > 1 and grads:
             torch._foreach_div_(grads, float(self.every))
-        self.optimizer.device_step()
+        # BertAdam's kernel clears the gradients in its own pass
+        self.optimizer.clear_grads = self.keep_grads and self.zero1 is None
+        cleared = self.optimizer.device_step()
         if self.zero1 is not None:
             self.zero1.all_gather()
             # the parameters' .grad are views of one buffer: kept, zeroed
             self.zero1.flat_grad.zero_()
         elif self.keep_grads:
-            if grads:
+            if grads and not cleared:
                 torch._foreach_zero_(grads)
         else:
             self.optimizer.zero_grad(set_to_none=True)

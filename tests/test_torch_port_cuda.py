@@ -1,6 +1,6 @@
 """medvill_torch on the card: the CUDA kernels (K1/K2 attention, K3/K4 fused
-LN) against their plain versions, and a tiny model's decode on the card
-(kernel path) against the CPU (plain path).  Every test here needs a CUDA device and nvcc and skips
+LN, BertAdam's update) against their plain versions, and a tiny model's
+decode on the card (kernel path) against the CPU (plain path).  Every test here needs a CUDA device and nvcc and skips
 elsewhere; the file imports neither jax nor medvill_tpu, so it also runs on
 a GPU host without them:
 
@@ -485,6 +485,107 @@ def test_bertadam_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
+# a BERT-base finetune's trained shapes (the word table, a hidden and an
+# intermediate matrix, the vocabulary bias, a one-element tensor, a
+# LayerNorm), then a tensor without a gradient, one with requires_grad
+# off and an unaligned ragged piece of a flat buffer (as ZeRO-1's spans)
+ADAM_SHAPES = [(30522, 768), (768, 768), (3072, 768), (30522,), (1,), (768,),
+               (64, 3), (5,), (4095,)]
+ADAM_NO_GRAD, ADAM_FROZEN, ADAM_PIECE = 6, 7, 8
+
+
+class _TimesFour:
+    """``parallel.WholeNorms``'s place: norms the update must take as
+    given (four times the pieces' own, so the clip differs if not)."""
+
+    def norms(self, params, grads):
+        return torch.stack(torch._foreach_norm(grads)) * 4.0
+
+
+def _adam_run(device, case: str, chain: bool, seed: int = 0):
+    """Three BertAdam updates through ``Accumulate`` over ADAM_SHAPES on
+    the card, by the kernel or (``chain``) by the foreach chain on the same
+    card; returns (parameters, optimizer)."""
+    from medvill_torch.train import optim
+
+    class Chain(optim.BertAdam):
+        def _kernel(self, live, norms):
+            self._chain(live, norms)
+            return False
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    scale = 1e-4 if case == "unclipped" else 3.0
+
+    def draw(shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    flat, flat_grad = draw(4099), torch.zeros(4099, device=device)
+    params = [torch.nn.Parameter(draw(s)) for s in ADAM_SHAPES[:-1]]
+    params.append(torch.nn.Parameter(flat[3:4098]))
+    params[ADAM_FROZEN].requires_grad_(False)
+    steps = [[draw(s) * scale for s in ADAM_SHAPES] for _ in range(3)]
+    opt = (Chain if chain else optim.BertAdam)(
+        [{"params": [params[i] for i in (0, 1, 2, 6, 7, 8)],
+          "weight_decay": 0.01},
+         {"params": [params[i] for i in (3, 4, 5)], "weight_decay": 0.0}],
+        lr=1e-3, t_total=4, weight_decay=0.01)
+    if case == "whole":
+        for group in opt.param_groups:
+            group["whole"] = _TimesFour()
+    tx = optim.Accumulate(opt, 1)
+    tx.keep_grads = case == "keep_grads"
+    for grads in steps:
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if i == ADAM_NO_GRAD:
+                continue
+            if p.grad is None:
+                p.grad = flat_grad[3:4098] if i == ADAM_PIECE else g.clone()
+            p.grad.copy_(g)
+        assert tx.step()
+        if tx.keep_grads:
+            for i, p in enumerate(params):
+                assert p.grad is None or not p.grad.any(), i
+    torch.cuda.synchronize()
+    return params, opt
+
+
+@pytest.mark.parametrize("case", ["clipped", "unclipped", "whole",
+                                  "keep_grads"])
+def test_bert_adam_kernel_matches_the_chain(cuda_device, case):
+    """ops.bert_adam's two launches against the foreach chain on the same
+    card and tensors, three updates: parameters and moments within 1e-6
+    (the chain's tolerance against the CPU), bit-equal where both take the
+    same norms (clip idle, or the norms given); two decay groups, a tensor
+    without a gradient (decay moves it), one with requires_grad off
+    (untouched, no moments), an unaligned piece; gradients cleared in the
+    kernel's pass under keep_grads; one launch count per update; and two
+    runs of the kernel bit-equal."""
+    from medvill_torch.ops import bert_adam as tba
+
+    before = tba.bert_adam.launches
+    got, opt = _adam_run(cuda_device, case, chain=False)
+    assert tba.bert_adam.launches == before + 3
+    if case == "keep_grads":  # the gradients keep their addresses
+        assert opt._table.builds == 1
+    again, opt2 = _adam_run(cuda_device, case, chain=False)
+    want, ref = _adam_run(cuda_device, case, chain=True)
+    assert tba.bert_adam.launches == before + 6
+    exact = case in ("unclipped", "whole")
+    for i, (p, q, r) in enumerate(zip(got, again, want)):
+        assert torch.equal(p, q), i
+        if i == ADAM_FROZEN:
+            assert not opt.state[p] and torch.equal(p, r)
+            continue
+        pairs = [(p, r), (opt.state[p]["m"], ref.state[r]["m"]),
+                 (opt.state[p]["v"], ref.state[r]["v"])]
+        assert torch.equal(opt.state[p]["m"], opt2.state[q]["m"]), i
+        for a, b in pairs:
+            if exact:
+                assert torch.equal(a, b), (i, (a - b).abs().max().item())
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6,
+                                       msg=f"tensor {i}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_kernels_at_the_mmbt_call(cuda_device, dtype, rate):
@@ -767,8 +868,8 @@ def test_captured_finetune_micro_steps_equal_eager(cuda_device, rate):
     k = 3 (CUDA graphs: the first micro-step eager, then the captured one
     replayed) against 6 eager micro-steps from the same weights, batches
     and seeds: losses, parameters and BatchNorm statistics within 1e-5 of
-    their scale (bit-identical expected), 2/2/4/4 K1-K4 launches per
-    micro-step on both paths (replays counted)."""
+    their scale (bit-identical expected), 2/2/4/4 K1-K4 launches and one
+    BertAdam update per micro-step on both paths (replays counted)."""
     from medvill_torch.train import dispatch
     from medvill_torch.train import finetune as tft
 
@@ -789,7 +890,7 @@ def test_captured_finetune_micro_steps_equal_eager(cuda_device, rate):
                 k: torch.stack([b[k] for b in batches[i:i + 3]])
                 for k in batches[0]}, gen)["loss"] for i in (0, 3)])
         launches = [f.launches - b for f, b in zip(dispatch.COUNTED, before)]
-        assert launches == [12, 12, 24, 24], (path, launches)
+        assert launches == [12, 12, 24, 24, 6], (path, launches)
         assert state.step == 6 and state.tx.optimizer.opt_step == 6
         runs[path] = (losses, state.model.state_dict())
     (le, sde), (lg, sdg) = runs["eager"], runs["graphed"]
